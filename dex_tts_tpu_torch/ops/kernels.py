@@ -1,0 +1,80 @@
+"""Build and load the hand-written CUDA kernels of `csrc/`.
+
+Each source is compiled by ``nvcc`` for Hopper (sm_90a) into a shared
+library with a plain C interface, loaded with ctypes. Libraries go to
+``build/kernels/`` at the repository root, named by a hash of the source,
+so a changed source rebuilds and an unchanged one is reused. Nothing is
+built at import time: the first launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+from dex_tts_tpu_torch.utils.device import resolve_device
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+SOURCES = ("flash_attention.cu",)
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        shutil.which("nvcc") or "",
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` unless its hashed library exists; return
+    the library path. A failed compile raises with nvcc's stderr."""
+    src = CSRC / source
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    out = BUILD_DIR / f"{src.stem}-{digest}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    return out
+
+
+@functools.cache
+def _load(source: str) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build(source)))
+
+
+def load_library(source: str, device=None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>``, built on first use. Needs a
+    CUDA device: with none given and no card visible it raises."""
+    if resolve_device(device).type != "cuda":
+        raise RuntimeError(f"{source} is a CUDA kernel; it needs a CUDA device")
+    return _load(source)
+
+
+def build_all() -> dict[str, Path]:
+    """Build every kernel source."""
+    return {s: build(s) for s in SOURCES}

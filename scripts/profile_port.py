@@ -1,0 +1,144 @@
+#!/usr/bin/env python3
+"""Where the time goes on the port's main path, on one NVIDIA card.
+
+    python3 scripts/profile_port.py
+
+Builds the main path with chip_smoke.build_main_path (the benchmark DeX at
+VCTK width, bf16, attention "auto", + HiFi-GAN, random weights) and, for
+each of chip_smoke's two requests (16 sentences in the 768-frame bucket;
+3 short sentences padded to 4), warms up once, then
+  1. times the stages of one `Synthesizer.tts` call with the host clock
+     around synchronised work: duration pre-pass, text→mel synthesis
+     (style + text encoders, 50 denoiser steps), vocoder;
+  2. traces one more call with torch.profiler and prints device time by
+     kernel (top 25), grouped into families, kernel launches, and the
+     device's idle share of the call's wall time.
+Prints one JSON line last. Needs a card.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+FAMILIES = (  # first match wins, by substring of the kernel name
+    ("flash_attention (csrc)", ("flash_fwd",)),
+    ("convolution", ("conv", "implicit_gemm", "xmma_fprop", "dgrad", "wgrad", "winograd", "fft")),
+    ("matmul", ("gemm", "cutlass", "sm90_xmma", "ampere", "cublas", "gemv", "splitk")),
+    ("softmax / norm / reduce", ("softmax", "norm", "reduce", "welford")),
+    ("elementwise / copy", ("elementwise", "vectorized", "copy", "cat", "fill", "index")),
+)
+
+
+def family(name: str) -> str:
+    low = name.lower()
+    for fam, keys in FAMILIES:
+        if any(k in low for k in keys):
+            return fam
+    return "other"
+
+
+def profile_request(preset, synth, texts, feats) -> dict:
+    """Stage times and one traced `tts` call of one request, after a warm-up."""
+    from dex_tts_tpu_torch.pipeline import SAMPLE_RATE
+
+    def call():
+        return synth.tts(texts, ref_feats=feats, temperature=preset.temperature, max_frames=768,
+                         generator=torch.Generator("cuda").manual_seed(6))
+
+    call()  # warm-up: cuDNN algorithm choice, kernel build
+    torch.cuda.synchronize()
+
+    # 1. stages, host clock around synchronised work
+    stages = {}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        inputs, b = synth.prepare_batch(texts, ref_feats=feats)
+        y_len = synth.frame_bucket(inputs, max_frames=768)
+        torch.cuda.synchronize()
+        stages["duration pre-pass"] = time.perf_counter() - t0
+        cond = {k: v for k, v in inputs.items() if k not in ("x", "x_lengths")}
+        t0 = time.perf_counter()
+        _, mel, _, y_lengths = synth.model.synthesize(
+            inputs["x"], inputs["x_lengths"], y_max_length=y_len, sampler=synth.sampler,
+            temperature=preset.temperature, generator=torch.Generator("cuda").manual_seed(6),
+            **cond,
+        )
+        torch.cuda.synchronize()
+        stages["text->mel (encoders + 50 steps)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        synth.vocoder(mel)
+        torch.cuda.synchronize()
+        stages["vocoder"] = time.perf_counter() - t0
+    audio_s = y_lengths[:b].sum().item() * synth.hop / SAMPLE_RATE
+    for k, v in stages.items():
+        print(f"stage {k}: {v * 1e3:.1f} ms")
+
+    # 2. one traced call
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0)
+        if dev > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((e.key, dev / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    launches = sum(r[2] for r in rows)
+    fams = {}
+    for name, ms, _ in rows:
+        fams[family(name)] = fams.get(family(name), 0.0) + ms
+    print(f"traced call: wall {wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms,"
+          f" idle share {1 - busy_ms / (wall * 1e3):.3f}, {launches} kernel launches")
+    for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
+        print(f"family {fam}: {ms:.1f} ms ({ms / busy_ms:.3f} of device time)")
+    for name, ms, n in rows[:25]:
+        print(f"kernel {ms:9.2f} ms  x{n:<6d} {name[:110]}")
+    return {
+        "batch": b, "padded_batch": inputs["x"].shape[0], "frames": y_len,
+        "steps": preset.n_timesteps, "audio_s": audio_s,
+        "rtf_untraced": sum(stages.values()) / audio_s,
+        "stages_ms": {k: v * 1e3 for k, v in stages.items()},
+        "traced_wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+        "idle_share": 1 - busy_ms / (wall * 1e3), "kernel_launches": launches,
+        "families_ms": fams,
+    }
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("profile_port: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    import chip_smoke
+
+    card = chip_smoke.card_line()
+    preset, synth = chip_smoke.build_main_path()
+    rng = np.random.default_rng(5)
+    report = {"card": card, "requests": {}}
+    for label, texts in (("16 x long", chip_smoke.SENTENCES), ("3 x short", chip_smoke.REQUEST_2)):
+        feats = [(rng.standard_normal((80, 256)).astype(np.float32),
+                  rng.standard_normal(256).astype(np.float32)) for _ in texts]
+        print(f"== {label} [{card}]")
+        report["requests"][label] = profile_request(preset, synth, texts, feats)
+    report["nvidia_smi"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    print(json.dumps(report))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,78 @@
+"""The port's presets hold the JAX package's configurations field for
+field, and the full-width parameter layout carries over strictly."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from __graft_entry__ import _full_size_dex  # noqa: E402
+from dex_tts_tpu.config import build_model as jax_build_model  # noqa: E402
+from dex_tts_tpu.config import load_preset as jax_load_preset  # noqa: E402
+from dex_tts_tpu.models.edm import SamplerConfig as JaxSamplerConfig  # noqa: E402
+from dex_tts_tpu_torch.config import build_model, load_preset  # noqa: E402
+from dex_tts_tpu_torch.convert import dex_tts_flax_to_torch, load_numpy_state  # noqa: E402
+from dex_tts_tpu_torch.models.tts import TTSConfig  # noqa: E402
+from dex_tts_tpu_torch.pipeline import X_QUANTUM, Y_QUANTUM  # noqa: E402
+
+
+def assert_same_fields(port_cfg: TTSConfig, jax_model):
+    for f in dataclasses.fields(TTSConfig):
+        want = getattr(jax_model, f.name)
+        got = getattr(port_cfg, f.name)
+        if f.name == "dit":
+            assert got.__dict__ == want.__dict__
+        else:
+            assert got == want, f.name
+
+
+@pytest.mark.parametrize(
+    "name,jax_factory",
+    [("vctk", lambda: jax_build_model(jax_load_preset("vctk"))), ("vctk_bench", _full_size_dex)],
+)
+def test_preset_equals_jax(name, jax_factory):
+    assert_same_fields(load_preset(name).model, jax_factory())
+
+
+def test_vctk_synthesis_settings_equal_yaml():
+    cfg = jax_load_preset("vctk")
+    preset = load_preset("vctk")
+    assert preset.n_timesteps == cfg.test.n_timesteps
+    assert preset.temperature == cfg.test.temperature
+    assert cfg.model.add_blank  # the port's Synthesizer always intersperses
+    assert (X_QUANTUM, Y_QUANTUM) == (cfg.train.x_quantum, cfg.train.y_quantum)
+    assert cfg.vocoder == "hifigan"
+    assert preset.cmu_path.endswith(cfg.path.cmu_path.removeprefix("resources"))
+
+
+def test_full_width_layout_loads_strictly():
+    """The benchmark DeX's JAX variables (shapes only, zeros) carry over
+    through the port's converter into the port's module with strict
+    loading: every parameter and buffer at full width lines up."""
+    jmodel = _full_size_dex()
+    b, tx, t_ref = 1, 8, 16
+    shapes = jax.eval_shape(
+        lambda: jmodel.init(
+            {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+            jax.random.PRNGKey(2), jnp.ones((b, tx), jnp.int32), jnp.full((b,), tx, jnp.int32),
+            y_max_length=16, sampler=JaxSamplerConfig(num_steps=2),
+            ref=jnp.zeros((b, 80, t_ref)), ref_lengths=jnp.full((b,), t_ref),
+            sty=jnp.zeros((b, 80, t_ref)), sty_lengths=jnp.full((b,), t_ref),
+            lf0=jnp.zeros((b, t_ref)), lf0_lengths=jnp.full((b,), t_ref),
+            method=type(jmodel).synthesize,
+        )
+    )
+    variables = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    cfg = load_preset("vctk_bench").model
+    port = build_model(cfg, device="cpu")
+    load_numpy_state(port, dex_tts_flax_to_torch(variables, cfg))
+    n_params = sum(p.numel() for p in port.parameters())
+    n_jax = sum(np.size(a) for a in jax.tree_util.tree_leaves(variables["params"]))
+    # torch's GRU also has hidden-side r/z biases (zero after conversion):
+    # 2 gates × hidden per direction × 2 directions × layers
+    gru_extra = 2 * (cfg.lf0_c_h // 2) * 2 * cfg.lf0_layers
+    assert n_params == n_jax + gru_extra
