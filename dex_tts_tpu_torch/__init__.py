@@ -2,8 +2,9 @@
 
 Mirrors the module layout of the JAX package (`dex_tts_tpu`), which stays
 the numerical reference. This package imports torch, numpy and scipy only;
-its one hand-written kernel (the DiT's flash attention) lives in `csrc/`
-and is built for Hopper (sm_90a) at first use.
+its hand-written kernels (the DiT's flash attention, BigVGAN's
+anti-aliased snake) live in `csrc/` and are built for Hopper (sm_90a) at
+first use.
 
 Device policy: entry points default to ``device="cuda"`` and raise when
 CUDA is missing, unless the caller asks for ``"cpu"`` explicitly.

@@ -4,17 +4,25 @@ Presets are Python dataclasses, not YAML reads: the machine with the card
 has no PyYAML. ``vctk`` is transcribed from
 dex_tts_tpu/config/presets/vctk.yaml (reference: DEX-TTS/config/VCTK/
 base.yaml; f32 compute); ``vctk_bench`` is the benchmark's full-size DeX
-(bf16 compute, attention "auto").
+(bf16 compute, attention "auto") with HiFi-GAN; ``vctk_bench_bigvgan`` is
+the same DeX with the bf16 BigVGAN at the released 22 kHz 80-band widths,
+the JAX bench's ``--vocoder bigvgan`` (bench.py:108-119).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass, field
 
 from dex_tts_tpu_torch.models.dit import DiTConfig
 from dex_tts_tpu_torch.models.tts import GeDEXTTS, TTSConfig, build_tts
-from dex_tts_tpu_torch.models.vocoder import HiFiGANConfig
+from dex_tts_tpu_torch.models.vocoder import (
+    BigVGANConfig,
+    BigVGANGenerator,
+    HiFiGANConfig,
+    HiFiGANGenerator,
+)
 from dex_tts_tpu_torch.text.symbols import N_VOCAB
 from dex_tts_tpu_torch.utils.device import resolve_device
 
@@ -27,7 +35,7 @@ class Preset:
     (``vocoder``, ``test``, ``path.cmu_path``)."""
 
     model: TTSConfig
-    vocoder: HiFiGANConfig = field(default_factory=HiFiGANConfig)
+    vocoder: HiFiGANConfig | BigVGANConfig = field(default_factory=HiFiGANConfig)
     n_timesteps: int = 50
     temperature: float = 1.5
     cmu_path: str = os.path.join(REPO_ROOT, "resources", "cmu_dictionary")
@@ -119,7 +127,16 @@ def vctk_bench() -> Preset:
     )
 
 
-PRESETS = {"vctk": vctk, "vctk_bench": vctk_bench}
+def vctk_bench_bigvgan() -> Preset:
+    """`vctk_bench`'s DeX with BigVGAN in bf16 (snake_impl "auto": the
+    fold kernel's polynomial sin²), every other field at its default:
+    1536 channels, rates (4, 4, 2, 2, 2, 2)."""
+    return dataclasses.replace(
+        vctk_bench(), vocoder=BigVGANConfig(num_mels=80, dtype="bfloat16")
+    )
+
+
+PRESETS = {"vctk": vctk, "vctk_bench": vctk_bench, "vctk_bench_bigvgan": vctk_bench_bigvgan}
 
 
 def load_preset(name: str) -> Preset:
@@ -130,3 +147,11 @@ def build_model(cfg: TTSConfig, device=None) -> GeDEXTTS:
     """TTSConfig → DeXTTS (use_style) or GeDEXTTS, in eval mode on
     ``device`` (CUDA by default)."""
     return build_tts(cfg).to(resolve_device(device))
+
+
+def build_vocoder(cfg: HiFiGANConfig | BigVGANConfig, device=None):
+    """Vocoder config → HiFiGANGenerator or BigVGANGenerator, in eval mode
+    on ``device`` (CUDA by default)."""
+    device = resolve_device(device)
+    cls = BigVGANGenerator if isinstance(cfg, BigVGANConfig) else HiFiGANGenerator
+    return cls(cfg).eval().to(device)

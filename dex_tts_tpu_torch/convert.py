@@ -1,14 +1,14 @@
 """JAX-package variables → this port's torch state_dict.
 
-A copy of the mapping in dex_tts_tpu/export.py (``dex_tts_flax_to_torch``
-and ``hifigan_flax_to_torch``), which writes the reference torch layout:
-the layout this port's modules use. Input: the JAX variables
-(``params``, ``batch_stats``, ``vq_stats``) as nested dicts of numpy
-arrays; output: a flat dict of numpy arrays that
+A copy of the mapping in dex_tts_tpu/export.py (``dex_tts_flax_to_torch``,
+``hifigan_flax_to_torch`` and ``bigvgan_flax_to_torch``), which writes
+the reference torch layout: the layout this port's modules use. Input:
+the JAX variables (``params``, ``batch_stats``, ``vq_stats``) as nested
+dicts of numpy arrays; output: a flat dict of numpy arrays that
 ``load_state_dict(strict=True)`` accepts (see `load_numpy_state`). The
 ``model`` argument only needs the facade's config attributes, so a
-`TTSConfig` or a JAX facade both work. HiFi-GAN weight norm is folded, as
-the port's generator holds plain convs.
+`TTSConfig` or a JAX facade both work. Vocoder weight norm is folded, as
+the port's generators hold plain convs.
 """
 
 from __future__ import annotations
@@ -356,6 +356,41 @@ def hifigan_flax_to_torch(params: dict, cfg) -> dict:
             for m in range(len(cfg.resblock_dilation_sizes[j])):
                 _conv1d(out, block[f"conv1_{m}"], f"resblocks.{idx}.convs1.{m}")
                 _conv1d(out, block[f"conv2_{m}"], f"resblocks.{idx}.convs2.{m}")
+    return out
+
+
+def bigvgan_flax_to_torch(params: dict, cfg) -> dict:
+    """BigVGANGenerator flax params → the port's generator state_dict
+    (reference names, bigvgan/models.py:140-218: upsamplers at
+    ``ups.{i}.0``, snake parameters at
+    ``resblocks.{m}.activations.{j}.act.{alpha,beta}``; plain convs)."""
+    out: dict = {}
+    _conv1d(out, params["conv_pre"], "conv_pre")
+    _conv1d(out, params["conv_post"], "conv_post")
+
+    def snake(p, prefix):
+        out[f"{prefix}.alpha"] = _np(p["alpha"])
+        if "beta" in p:
+            out[f"{prefix}.beta"] = _np(p["beta"])
+
+    snake(params["act_post"], "activation_post.act")
+    n_kernels = len(cfg.resblock_kernel_sizes)
+    for i in range(len(cfg.upsample_rates)):
+        _convT1d(out, params[f"up_{i}"], f"ups.{i}.0")
+        for j in range(n_kernels):
+            m = i * n_kernels + j
+            block = params[f"resblock_{i}_{j}"]
+            n_dil = len(cfg.resblock_dilation_sizes[j])
+            if cfg.resblock == "1":
+                for d in range(n_dil):
+                    _conv1d(out, block[f"conv1_{d}"], f"resblocks.{m}.convs1.{d}")
+                    _conv1d(out, block[f"conv2_{d}"], f"resblocks.{m}.convs2.{d}")
+                    snake(block[f"act1_{d}"], f"resblocks.{m}.activations.{2 * d}.act")
+                    snake(block[f"act2_{d}"], f"resblocks.{m}.activations.{2 * d + 1}.act")
+            else:
+                for d in range(min(n_dil, 2)):
+                    _conv1d(out, block[f"conv_{d}"], f"resblocks.{m}.convs.{d}")
+                    snake(block[f"act_{d}"], f"resblocks.{m}.activations.{d}.act")
     return out
 
 

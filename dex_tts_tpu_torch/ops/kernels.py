@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("flash_attention.cu",)
+SOURCES = ("flash_attention.cu", "snake.cu")
 
 
 def _nvcc() -> str:
@@ -39,27 +39,46 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless its hashed library exists; return
-    the library path. A failed compile raises with nvcc's stderr."""
+def _library_path(source: str) -> Path:
     src = CSRC / source
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    out = BUILD_DIR / f"{src.stem}-{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    return out
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
+
+
+def build_all(sources=SOURCES) -> dict[str, Path]:
+    """Compile each of ``csrc/<source>`` whose hashed library is missing,
+    one nvcc process per source, all started together; return the
+    library paths. A failed compile raises with nvcc's stderr."""
+    outs = {s: _library_path(s) for s in sources}
+    running = {}
+    for source, out in outs.items():
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        running[source] = (proc, tmp)
+    errors = []
+    for source, (proc, tmp) in running.items():
+        _, stderr = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            errors.append(f"nvcc failed for {source}:\n{stderr}")
+        else:
+            os.replace(tmp, outs[source])  # atomic: a concurrent build never sees half a file
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return outs
+
+
+def build(source: str) -> Path:
+    """The library of ``csrc/<source>``, compiled unless it exists."""
+    return build_all((source,))[source]
 
 
 @functools.cache
@@ -73,8 +92,3 @@ def load_library(source: str, device=None) -> ctypes.CDLL:
     if resolve_device(device).type != "cuda":
         raise RuntimeError(f"{source} is a CUDA kernel; it needs a CUDA device")
     return _load(source)
-
-
-def build_all() -> dict[str, Path]:
-    """Build every kernel source."""
-    return {s: build(s) for s in SOURCES}

@@ -1,5 +1,5 @@
-"""End-to-end inference: text (+ reference style features / speaker id) →
-waveform (port of dex_tts_tpu/pipeline.py, `tts` path).
+"""End-to-end inference: text (+ reference speech / style features /
+speaker id) → waveform (port of dex_tts_tpu/pipeline.py, `tts` path).
 
   1. the duration pre-pass (`predict_frames`) predicts the frame count,
   2. the host rounds it up to a frame bucket (×64, U-Net compatible) and
@@ -8,9 +8,10 @@ waveform (port of dex_tts_tpu/pipeline.py, `tts` path).
      vocoder.
 
 The buckets and batch padding are those of the JAX package, so both pick
-the same shapes for the same inputs. Style comes in as pre-extracted
-``ref_feats`` [(mel (F, T), lf0 (T,)), ...]; the reference-wav front end,
-`tts_stream` and `tts_long` are not ported yet.
+the same shapes for the same inputs. Style comes in as reference wav files
+(``ref_wavs``, through `prepare_reference`) or as pre-extracted
+``ref_feats`` [(mel (F, T), lf0 (T,)), ...]; `tts_stream` and `tts_long`
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +21,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from dex_tts_tpu_torch.audio.pitch import extract_lf0, normalize_lf0
+from dex_tts_tpu_torch.audio.stft import MelSpectrogram
+from dex_tts_tpu_torch.audio.wav import peak_normalize, read_wav, resample, trim_silence
 from dex_tts_tpu_torch.models.edm import SamplerConfig
 from dex_tts_tpu_torch.ops.masks import fix_len_compatibility
 from dex_tts_tpu_torch.text import CMUDict, text_to_sequence
@@ -48,13 +52,15 @@ class Synthesizer:
         device=None,
     ):
         """model: a DeXTTS / GeDEXTTS with its weights; vocoder: a
-        HiFiGANGenerator or None. Both are moved to ``device`` (CUDA by
-        default; raises if CUDA is missing and "cpu" was not asked for)."""
+        HiFiGANGenerator, a BigVGANGenerator or None. Both are moved to
+        ``device`` (CUDA by default; raises if CUDA is missing and "cpu" was
+        not asked for)."""
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.vocoder = None if vocoder is None else vocoder.to(self.device).eval()
         self.cmudict = CMUDict(cmu_path) if cmu_path else None
         self.sampler = sampler or SamplerConfig(num_steps=50)
+        self.mel_extractor = MelSpectrogram()
         self.hop = HOP_LENGTH
         if vocoder is not None:
             self.hop = int(np.prod(vocoder.cfg.upsample_rates))
@@ -62,6 +68,21 @@ class Synthesizer:
     def prepare_text(self, text: str) -> np.ndarray:
         seq = intersperse(text_to_sequence(text, dictionary=self.cmudict), BLANK_ID)
         return np.asarray(seq, np.int32)
+
+    def prepare_reference(self, wav_path: str):
+        """Reference wav → (mel (80, T), normalized lf0 (T,)), numpy: trim,
+        resample to 22.05 kHz and peak-normalize on the host, log-mel on
+        the synthesizer's device, lf0 on the host.
+        reference: DEX-TTS/synthesize.py:40-62."""
+        wav, sr = read_wav(wav_path)
+        wav = trim_silence(wav, top_db=30.0)
+        wav = resample(wav, sr, SAMPLE_RATE)
+        wav = peak_normalize(wav)
+        mel, _ = self.mel_extractor(torch.from_numpy(wav)[None].to(self.device))
+        mel = mel[0].cpu().numpy()
+        lf0 = normalize_lf0(extract_lf0(wav, SAMPLE_RATE, HOP_LENGTH))
+        t = min(mel.shape[1], len(lf0))
+        return mel[:, :t], lf0[:t]
 
     def prepare_batch(self, texts: Sequence[str], spk_ids=None, ref_feats=None):
         """Token ids, lengths and style inputs of one batch, bucketed and
@@ -127,15 +148,19 @@ class Synthesizer:
         temperature: float = 1.5,
         length_scale: float = 1.0,
         spk_ids: Sequence[int] | None = None,
+        ref_wavs: Sequence[str] | None = None,
         ref_feats: Sequence[tuple] | None = None,
         max_frames: int = 2048,
     ) -> list[dict]:
         """Synthesize a batch of sentences → [{mel, wav, n_frames}] (no
-        "wav" without a vocoder). Noise comes from ``generator`` (a
-        generator on the synthesizer's device; a fresh one seeded with 0
-        when None)."""
+        "wav" without a vocoder). Style comes from ``ref_wavs`` (one wav
+        path per sentence) or else ``ref_feats``. Noise comes from
+        ``generator`` (a generator on the synthesizer's device; a fresh one
+        seeded with 0 when None)."""
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
+        if ref_wavs is not None:
+            ref_feats = [self.prepare_reference(p) for p in ref_wavs]
 
         inputs, b = self.prepare_batch(texts, spk_ids, ref_feats)
         y_len = self.frame_bucket(inputs, length_scale, max_frames)

@@ -3,13 +3,16 @@
 
     python3 scripts/profile_port.py
 
-Builds the main path with chip_smoke.build_main_path (the benchmark DeX at
-VCTK width, bf16, attention "auto", + HiFi-GAN, random weights) and, for
-each of chip_smoke's two requests (16 sentences in the 768-frame bucket;
-3 short sentences padded to 4), warms up once, then
+Builds both of chip_smoke's main paths with chip_smoke.build_main_path
+(the benchmark DeX at VCTK width, bf16, attention "auto", random weights,
+with HiFi-GAN; then with the bf16 BigVGAN, fed reference WAV files that
+chip_smoke.write_reference_wavs writes) and, for each of chip_smoke's two
+requests (16 sentences in the 768-frame bucket; 3 short sentences padded
+to 4), warms up once, then
   1. times the stages of one `Synthesizer.tts` call with the host clock
-     around synchronised work: duration pre-pass, text→mel synthesis
-     (style + text encoders, 50 denoiser steps), vocoder;
+     around synchronised work: reference front end (WAV path only),
+     duration pre-pass, text→mel synthesis (style + text encoders, 50
+     denoiser steps), vocoder;
   2. traces one more call with torch.profiler and prints device time by
      kernel (top 25), grouped into families, kernel launches, and the
      device's idle share of the call's wall time.
@@ -20,15 +23,16 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
-import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 FAMILIES = (  # first match wins, by substring of the kernel name
     ("flash_attention (csrc)", ("flash_fwd",)),
+    ("snake (csrc)", ("snake_fwd",)),
     ("convolution", ("conv", "implicit_gemm", "xmma_fprop", "dgrad", "wgrad", "winograd", "fft")),
     ("matmul", ("gemm", "cutlass", "sm90_xmma", "ampere", "cublas", "gemv", "splitk")),
     ("softmax / norm / reduce", ("softmax", "norm", "reduce", "welford")),
@@ -44,13 +48,15 @@ def family(name: str) -> str:
     return "other"
 
 
-def profile_request(preset, synth, texts, feats) -> dict:
-    """Stage times and one traced `tts` call of one request, after a warm-up."""
+def profile_request(preset, synth, texts, refs) -> dict:
+    """Stage times and one traced `tts` call of one request, after a
+    warm-up. ``refs``: the style keyword of `tts` (``ref_feats`` or
+    ``ref_wavs``)."""
     from dex_tts_tpu_torch.pipeline import SAMPLE_RATE
 
     def call():
-        return synth.tts(texts, ref_feats=feats, temperature=preset.temperature, max_frames=768,
-                         generator=torch.Generator("cuda").manual_seed(6))
+        return synth.tts(texts, temperature=preset.temperature, max_frames=768,
+                         generator=torch.Generator("cuda").manual_seed(6), **refs)
 
     call()  # warm-up: cuDNN algorithm choice, kernel build
     torch.cuda.synchronize()
@@ -58,6 +64,12 @@ def profile_request(preset, synth, texts, feats) -> dict:
     # 1. stages, host clock around synchronised work
     stages = {}
     with torch.no_grad():
+        feats = refs.get("ref_feats")
+        if feats is None:
+            t0 = time.perf_counter()
+            feats = [synth.prepare_reference(p) for p in refs["ref_wavs"]]
+            torch.cuda.synchronize()
+            stages["reference front end"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         inputs, b = synth.prepare_batch(texts, ref_feats=feats)
         y_len = synth.frame_bucket(inputs, max_frames=768)
@@ -126,14 +138,22 @@ def main():
     import chip_smoke
 
     card = chip_smoke.card_line()
-    preset, synth = chip_smoke.build_main_path()
-    rng = np.random.default_rng(5)
-    report = {"card": card, "requests": {}}
-    for label, texts in (("16 x long", chip_smoke.SENTENCES), ("3 x short", chip_smoke.REQUEST_2)):
-        feats = [(rng.standard_normal((80, 256)).astype(np.float32),
-                  rng.standard_normal(256).astype(np.float32)) for _ in texts]
-        print(f"== {label} [{card}]")
-        report["requests"][label] = profile_request(preset, synth, texts, feats)
+    report = {"card": card, "paths": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        wavs = chip_smoke.write_reference_wavs(tmp, 16)
+        for preset_name, refs_1, refs_2 in (
+            ("vctk_bench", {"ref_feats": chip_smoke.random_ref_feats(16)},
+             {"ref_feats": chip_smoke.random_ref_feats(3, seed=6)}),
+            ("vctk_bench_bigvgan", {"ref_wavs": wavs}, {"ref_wavs": wavs[:3]}),
+        ):
+            preset, synth = chip_smoke.build_main_path(preset_name)
+            requests = report["paths"][preset_name] = {}
+            for label, texts, refs in (("16 x long", chip_smoke.SENTENCES, refs_1),
+                                       ("3 x short", chip_smoke.REQUEST_2, refs_2)):
+                print(f"== {preset_name}, {label} [{card}]")
+                requests[label] = profile_request(preset, synth, texts, refs)
+            del synth
+            torch.cuda.empty_cache()
     report["nvidia_smi"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()

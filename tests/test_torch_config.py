@@ -13,9 +13,16 @@ torch = pytest.importorskip("torch")
 from __graft_entry__ import _full_size_dex  # noqa: E402
 from dex_tts_tpu.config import build_model as jax_build_model  # noqa: E402
 from dex_tts_tpu.config import load_preset as jax_load_preset  # noqa: E402
+from dex_tts_tpu.export import bigvgan_flax_to_torch as jax_bigvgan_export  # noqa: E402
 from dex_tts_tpu.models.edm import SamplerConfig as JaxSamplerConfig  # noqa: E402
-from dex_tts_tpu_torch.config import build_model, load_preset  # noqa: E402
-from dex_tts_tpu_torch.convert import dex_tts_flax_to_torch, load_numpy_state  # noqa: E402
+from dex_tts_tpu.models.vocoder import BigVGANConfig as JaxBigVGANConfig  # noqa: E402
+from dex_tts_tpu.models.vocoder import BigVGANGenerator as JaxBigVGAN  # noqa: E402
+from dex_tts_tpu_torch.config import build_model, build_vocoder, load_preset  # noqa: E402
+from dex_tts_tpu_torch.convert import (  # noqa: E402
+    bigvgan_flax_to_torch,
+    dex_tts_flax_to_torch,
+    load_numpy_state,
+)
 from dex_tts_tpu_torch.models.tts import TTSConfig  # noqa: E402
 from dex_tts_tpu_torch.pipeline import X_QUANTUM, Y_QUANTUM  # noqa: E402
 
@@ -32,7 +39,8 @@ def assert_same_fields(port_cfg: TTSConfig, jax_model):
 
 @pytest.mark.parametrize(
     "name,jax_factory",
-    [("vctk", lambda: jax_build_model(jax_load_preset("vctk"))), ("vctk_bench", _full_size_dex)],
+    [("vctk", lambda: jax_build_model(jax_load_preset("vctk"))), ("vctk_bench", _full_size_dex),
+     ("vctk_bench_bigvgan", _full_size_dex)],
 )
 def test_preset_equals_jax(name, jax_factory):
     assert_same_fields(load_preset(name).model, jax_factory())
@@ -76,3 +84,31 @@ def test_full_width_layout_loads_strictly():
     # 2 gates × hidden per direction × 2 directions × layers
     gru_extra = 2 * (cfg.lf0_c_h // 2) * 2 * cfg.lf0_layers
     assert n_params == n_jax + gru_extra
+
+
+def test_bigvgan_preset_equals_jax_bench():
+    """`vctk_bench_bigvgan`'s vocoder is the JAX bench's `--vocoder
+    bigvgan` (bench.py:108-119, vocoder dtype "auto" → bf16) field for
+    field."""
+    want = JaxBigVGANConfig(num_mels=80, dtype="bfloat16")
+    got = load_preset("vctk_bench_bigvgan").vocoder
+    for f in dataclasses.fields(want):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
+
+
+def test_bigvgan_full_width_layout_loads_strictly():
+    """The full-width BigVGAN's JAX parameters (shapes only, zeros) carry
+    over through the port's converter with strict loading, and the key
+    set is the JAX export's."""
+    cfg = load_preset("vctk_bench_bigvgan").vocoder
+    jcfg = JaxBigVGANConfig(num_mels=80, dtype="bfloat16")
+    shapes = jax.eval_shape(
+        lambda: JaxBigVGAN(jcfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 80, 4)))
+    )["params"]
+    params = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    state = bigvgan_flax_to_torch(params, cfg)
+    assert set(state) == set(jax_bigvgan_export(params, jcfg, weight_norm=False))
+    port = build_vocoder(cfg, device="cpu")
+    load_numpy_state(port, state)
+    n_jax = sum(np.size(a) for a in jax.tree_util.tree_leaves(params))
+    assert sum(p.numel() for p in port.parameters()) == n_jax

@@ -56,19 +56,25 @@ def test_source_names_no_jax_or_jax_package():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
-    from dex_tts_tpu_torch.config import build_model
+    from dex_tts_tpu_torch.config import build_model, build_vocoder
+    from dex_tts_tpu_torch.models.vocoder import BigVGANConfig, HiFiGANConfig
     from dex_tts_tpu_torch.ops.kernels import load_library
     from dex_tts_tpu_torch.pipeline import Synthesizer
-    from tests.torch_port_util import tiny_cfg
+    from tests.torch_port_util import BIGVGAN_TINY, tiny_cfg
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        load_library("flash_attention.cu")
+    for source in ("flash_attention.cu", "snake.cu"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            load_library(source)
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            load_library(source, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(tiny_cfg())
+    for voc in (BigVGANConfig(**BIGVGAN_TINY), HiFiGANConfig()):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build_vocoder(voc)
+    assert build_vocoder(BigVGANConfig(**BIGVGAN_TINY), device="cpu").conv_pre.weight.is_cpu
     model = build_model(tiny_cfg(), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Synthesizer(model)
     assert Synthesizer(model, device="cpu").device.type == "cpu"
-    with pytest.raises(RuntimeError, match="needs a CUDA device"):
-        load_library("flash_attention.cu", device="cpu")

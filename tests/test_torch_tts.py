@@ -1,6 +1,6 @@
 """Port vs JAX package, whole slice: tiny DeX `synthesize` (2 euler steps,
-shared initial noise, DiT through the flash route), HiFi-GAN, and the
-Synthesizer's buckets and audio."""
+shared initial noise, DiT through the flash route), HiFi-GAN, DeX →
+BigVGAN, and the Synthesizer's buckets and audio."""
 
 from functools import partial
 
@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 from dex_tts_tpu.models.edm import SamplerConfig as JaxSamplerConfig  # noqa: E402
 from dex_tts_tpu.models.vocoder import HiFiGANConfig as JaxHiFiGANConfig  # noqa: E402
+from dex_tts_tpu.models.vocoder import BigVGANGenerator as JaxBigVGAN  # noqa: E402
 from dex_tts_tpu.models.vocoder import HiFiGANGenerator as JaxHiFiGAN  # noqa: E402
 from dex_tts_tpu.ops import fix_len_compatibility  # noqa: E402
 from dex_tts_tpu.pipeline import Synthesizer as JaxSynthesizer  # noqa: E402
@@ -21,7 +22,7 @@ from dex_tts_tpu_torch.models.dit import resolve_attention_mode, token_count  # 
 from dex_tts_tpu_torch.models.edm import SamplerConfig  # noqa: E402
 from dex_tts_tpu_torch.models.vocoder import HiFiGANConfig, HiFiGANGenerator  # noqa: E402
 from dex_tts_tpu_torch.pipeline import Synthesizer  # noqa: E402
-from tests.torch_port_util import build_pair, perturb, style_inputs, t, tiny_cfg  # noqa: E402
+from tests.torch_port_util import bigvgan_pair, build_pair, perturb, style_inputs, t, tiny_cfg  # noqa: E402
 
 N_STEPS = 2
 TEMP = 1.5
@@ -101,6 +102,50 @@ def test_hifigan_matches_jax(dtype, tol):
         got = port(t(mel)).numpy()
     assert got.shape == (2, 21 * 256) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, atol=1e-4 if tol is None else tol * np.abs(want).max())
+
+
+def test_dex_to_bigvgan_chain_matches_jax(pair):
+    """The mel agrees as in the HiFi-GAN chain (atol 2e-3, rtol 1e-2); the
+    waveform within 1e-3 of its peak: f32 sums in another order through
+    the DeX and the f32 BigVGAN (the vocoder alone agrees to 1e-4)."""
+    model, variables, port = pair
+    jcfg, voc_params, voc = bigvgan_pair()
+    rng = np.random.default_rng(0)
+    b, tx, tr = 2, 9, 11
+    x = rng.integers(1, 30, (b, tx)).astype(np.int32)
+    x_lengths = np.asarray([tx, 6], np.int32)
+    x[1, 6:] = 0
+    style = style_inputs(rng, b, tr, lengths=[tr, 8])
+    jstyle = {k: jnp.asarray(v) for k, v in style.items()}
+    logw, x_mask = jax.jit(partial(model.apply, method=type(model).predict_durations))(
+        variables, jnp.asarray(x), jnp.asarray(x_lengths), **jstyle
+    )
+    frames = int(np.ceil(np.exp(np.asarray(logw)) * np.asarray(x_mask)).sum(1).max())
+    y_max = fix_len_compatibility(max(frames, 16))
+    noise = rng.standard_normal((b, CFG.n_feats, y_max)).astype(np.float32)
+
+    @jax.jit
+    def run(variables, voc_params, x, x_lengths, noise, style):
+        _, mel, _, y_lengths = model.apply(
+            variables, jax.random.PRNGKey(0), x, x_lengths, y_max_length=y_max,
+            sampler=JaxSamplerConfig(num_steps=N_STEPS), temperature=TEMP,
+            latents_noise=noise, method=type(model).synthesize, **style,
+        )
+        return mel, JaxBigVGAN(jcfg).apply({"params": voc_params}, mel), y_lengths
+
+    want_mel, want_wav, want_len = (np.asarray(a) for a in run(
+        variables, voc_params, jnp.asarray(x), jnp.asarray(x_lengths), jnp.asarray(noise), jstyle))
+    with torch.no_grad():
+        _, mel, _, y_lengths = port.synthesize(
+            t(x, torch.long), t(x_lengths, torch.long), y_max_length=y_max,
+            sampler=SamplerConfig(num_steps=N_STEPS), temperature=TEMP,
+            latents_noise=t(noise), **{k: t(v) for k, v in style.items()},
+        )
+        wav = voc(mel).numpy()
+    np.testing.assert_array_equal(y_lengths.numpy(), want_len)
+    np.testing.assert_allclose(mel.numpy(), want_mel, atol=2e-3, rtol=1e-2)
+    assert wav.shape == want_wav.shape == (b, y_max * 8)
+    np.testing.assert_allclose(wav, want_wav, atol=1e-3 * np.abs(want_wav).max())
 
 
 def test_synthesizer_buckets_match_jax(pair):

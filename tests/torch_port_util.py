@@ -20,9 +20,16 @@ from dex_tts_tpu.models.dit import DiTConfig as JaxDiTConfig
 from dex_tts_tpu.models.edm import SamplerConfig as JaxSamplerConfig
 from dex_tts_tpu.models.tts import DeXTTS as JaxDeXTTS
 from dex_tts_tpu.models.tts import GeDEXTTS as JaxGeDEXTTS
-from dex_tts_tpu_torch.convert import dex_tts_flax_to_torch, load_numpy_state
+from dex_tts_tpu.models.vocoder import BigVGANConfig as JaxBigVGANConfig
+from dex_tts_tpu.models.vocoder import BigVGANGenerator as JaxBigVGAN
+from dex_tts_tpu_torch.convert import (
+    bigvgan_flax_to_torch,
+    dex_tts_flax_to_torch,
+    load_numpy_state,
+)
 from dex_tts_tpu_torch.models.dit import DiTConfig
 from dex_tts_tpu_torch.models.tts import TTSConfig, build_tts
+from dex_tts_tpu_torch.models.vocoder import BigVGANConfig, BigVGANGenerator
 
 N_FEATS = 12
 
@@ -112,6 +119,24 @@ def build_pair(cfg: TTSConfig, seed=0, b=2, tx=9, t_ref=11):
     port = build_tts(cfg)
     load_numpy_state(port, dex_tts_flax_to_torch(variables, cfg))
     return model, variables, port
+
+
+# rates (4, 2): hop 8
+BIGVGAN_TINY = dict(num_mels=12, upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4),
+                    upsample_initial_channel=32, resblock_kernel_sizes=(3, 5),
+                    resblock_dilation_sizes=((1, 3, 5), (1, 3, 5)))
+
+
+def bigvgan_pair(seed=3, **overrides):
+    """(JAX config, perturbed JAX params as numpy, port generator on the
+    CPU with the same weights). Every parameter is perturbed, snake alpha
+    and beta included, so the snakes shape the output."""
+    jcfg = JaxBigVGANConfig(**BIGVGAN_TINY, **overrides)
+    params = JaxBigVGAN(jcfg).init(jax.random.PRNGKey(seed), jnp.zeros((1, jcfg.num_mels, 8)))
+    params = perturb(jax.tree_util.tree_map(np.asarray, dict(params)), seed)["params"]
+    port = BigVGANGenerator(BigVGANConfig(**BIGVGAN_TINY, **overrides)).eval()
+    load_numpy_state(port, bigvgan_flax_to_torch(params, jcfg))
+    return jcfg, params, port
 
 
 def t(x, dtype=None):
