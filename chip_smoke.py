@@ -31,10 +31,27 @@ Phases (each asserts; any failure exits non-zero):
   4b. the same two requests through the same DeX + BigVGAN (bf16, full
      width), with reference WAV files that the script writes itself
      (`tts(ref_wavs=...)`: trim, resample, log-mel, lf0).
+Training (the third slice) adds:
+  2b. monotonic alignment search (K4) against its plain version: exactly
+     equal paths and sum(path) == t_y per item, at bench_train's batch,
+     ESD's long buckets and ragged lengths; the flash-attention backward
+     kernels (dK/dV, dQ) and the forward's log-sum-exp against the plain
+     backward, bf16 and f32, at the train step's and the synthesis shape
+     and ragged T, timed against SDPA's forward + backward;
+  3c. one train step (losses and every gradient) of a depth-cut DeX at
+     full width, card against CPU, f32, attention "flash", with the same
+     draws and a planted alignment; CPU controls with the MAS path
+     shifted and with dQ zeroed land far outside the bounds;
+  5. the training main path: the ESD preset at full width on
+     bench_train's batch through `make_train_step`, attention "auto"
+     (einsum at 880 tokens) and "flash_bf16", launch counts asserted;
+  6. `Trainer.fit` through the train entry point on a dataset the script
+     writes, checkpoints, and a resume that repeats the next step.
 The last two lines are the `kernels` JSON line and the device JSON line.
 Needs one card; exits non-zero without CUDA.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -49,6 +66,8 @@ import torch
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 MAIN_SHAPE = (16, 3840, 2, 128)  # (B, T, H, hd): 16 × 768 frames, 20 × 192 patches
+TRAIN_ATTN_SHAPE = (32, 880, 2, 128)  # the ESD train step: 32 × 172-frame crops, 20 × 44 patches
+MAS_SHAPES = [(32, 96, 256), (32, 256, 1024)]  # (B, Tx, Ty): bench_train's batch, ESD's long buckets
 MEL_ATOL = 1e-3  # card vs CPU, f32 with TF32 off
 WAV_ATOL = 1e-4  # BigVGAN card vs CPU, f32 with TF32 off
 # BigVGAN's snake inputs (B, T, C) at request 1 (16 × 768 frames), and the
@@ -110,6 +129,39 @@ def write_reference_wavs(directory: str, n: int, seed: int = 7) -> list[str]:
         wavfile.write(path, REF_SR, (np.clip(wav, -1, 1) * 32767).astype(np.int16))
         paths.append(path)
     return paths
+
+
+TRAIN_TEXTS = ["Printing, in the only sense with which we are at present concerned.",
+               "She sells seashells by the seashore.", "Good morning.",
+               "The committee will meet again next Thursday to review the budget."]
+
+
+def write_training_set(directory: str, n_items: int, n_mels: int = 80, seed: int = 8,
+                       frames=(60, 300)) -> tuple[str, str]:
+    """A dataset on disk in the preprocessing layout, from a seed: mel
+    ``mel/spk-mel-NNN.npy`` (T, n_mels) and lf0 ``lf0/spk-lf0-NNN.npy`` (T,)
+    with every fourth frame unvoiced, T in ``frames``, and two filelists
+    ``mel_path|text|speaker`` (train: every item; valid: the first
+    quarter). → (train filelist, valid filelist)."""
+    rng = np.random.default_rng(seed)
+    for sub in ("mel", "lf0"):
+        os.makedirs(os.path.join(directory, sub), exist_ok=True)
+    lines = []
+    for i in range(n_items):
+        n = int(rng.integers(*frames))
+        mel = rng.standard_normal((n, n_mels)).astype(np.float32)
+        lf0 = (5.0 + 0.3 * rng.standard_normal(n)).astype(np.float32)
+        lf0[::4] = 0.0
+        path = os.path.join(directory, "mel", f"spk-mel-{i:03d}.npy")
+        np.save(path, mel)
+        np.save(os.path.join(directory, "lf0", f"spk-lf0-{i:03d}.npy"), lf0)
+        lines.append(f"{path}|{TRAIN_TEXTS[i % len(TRAIN_TEXTS)]}|{i % 2}")
+    files = []
+    for name, chosen in (("train.txt", lines), ("valid.txt", lines[:max(1, n_items // 4)])):
+        files.append(os.path.join(directory, name))
+        with open(files[-1], "w") as f:
+            f.write("\n".join(chosen) + "\n")
+    return files[0], files[1]
 
 
 def log(*args):
@@ -186,6 +238,198 @@ def phase_kernels():
         log(f"flash_attention {dtype} at {MAIN_SHAPE}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
             f" sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return report
+
+
+def attention_bwd_bound_ms(b, t, h, hd, dtype) -> tuple[float, str]:
+    """Least time for the attention backward: q, k, v, o, dO read once,
+    dq, dk, dv written once (plus the f32 lse and D), against 10·B·H·T²·hd
+    operations (S and dP recomputed, dV, dK, dQ) at the type's peak."""
+    elem = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = (8 * b * t * h * hd * elem + 2 * 4 * b * h * t) / PEAK_BYTES
+    t_ops = 10 * b * h * t * t * hd / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_fwd_bwd_bound_ms(b, t, h, hd, dtype) -> tuple[float, str]:
+    """Least time for forward + backward: q, k, v, dO read and o, dq, dk,
+    dv written once each (the forward's o and lse read back counted as
+    well), against 14·B·H·T²·hd operations at the type's peak."""
+    elem = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = (9 * b * t * h * hd * elem + 3 * 4 * b * h * t) / PEAK_BYTES
+    t_ops = 14 * b * h * t * t * hd / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_attention_backward():
+    """K1's forward with its log-sum-exp (the instantiation a train step
+    runs) and backward kernels against the plain versions on the card: bf16
+    at the train step's shape under flash_bf16, the synthesis shape and
+    ragged T, and f32. The forward's o at its tolerance (bf16 2e-2 ×
+    max|o|, f32 1e-4), the lse within 1e-3, then dq, dk, dv each within
+    2e-2 (bf16) or 1e-4 (f32) × its max |grad|, floored at a tenth of
+    max |dv|; max_abs_err is the worst of o, dq, dk and dv. Then backward
+    and forward + backward times at the train shape against the plain
+    versions and SDPA. → per-type report."""
+    from dex_tts_tpu_torch.ops.attention import (
+        FlashAttentionQKV,
+        attention_bwd_reference,
+        attention_delta,
+        attention_reference_lse,
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+
+    report = {}
+    for dtype, rel, fwd_tol in ((torch.bfloat16, 2e-2, "2e-2 x max|o|"),
+                                (torch.float32, 1e-4, "atol 1e-4")):
+        worst, worst_lse = 0.0, 0.0
+        shapes = [TRAIN_ATTN_SHAPE, MAIN_SHAPE] + [(2, t, 2, 128) for t in (1, 63, 777)]
+        for shape in shapes:
+            b, t, h, hd = shape
+            g = torch.Generator(device="cuda").manual_seed(t)
+            qkv = torch.randn((b, t, 3, h, hd), generator=g, device="cuda").to(dtype)
+            qkv.requires_grad_(True)
+            do = torch.randn((b, t, h, hd), generator=g, device="cuda").to(dtype)
+            scale = hd**-0.5
+            FlashAttentionQKV.apply(qkv, scale).backward(do)
+            q, k, v = (qkv.detach()[:, :, i] for i in range(3))
+            out, lse = flash_attention(q, k, v, scale, with_lse=True)  # what the Function saved
+            out_ref, lse_ref = attention_reference_lse(q, k, v, scale)
+            torch.cuda.synchronize()
+            # the training instantiation's o, at the forward's tolerance
+            fwd_err = (out.float() - out_ref.float()).abs().max().item()
+            fwd_bound = (2e-2 * out_ref.float().abs().max().item() if dtype == torch.bfloat16
+                         else 1e-4)
+            lse_err = (lse - lse_ref).abs().max().item()
+            log(f"flash forward with lse {dtype} {shape}: o max_abs_err {fwd_err:.3e} (bound"
+                f" {fwd_bound:.3e}), lse max_abs_err {lse_err:.3e} (bound 1e-3)")
+            assert math.isfinite(fwd_err) and fwd_err <= fwd_bound, (dtype, shape, fwd_err, fwd_bound)
+            assert math.isfinite(lse_err) and lse_err <= 1e-3, (dtype, shape, lse_err)
+            worst = max(worst, fwd_err)
+            worst_lse = max(worst_lse, lse_err)
+            del out_ref, lse_ref
+            want = attention_bwd_reference(q, k, v, out, lse, do, scale)
+            # at T = 1, dq and dk are 0 in exact arithmetic and what is left
+            # is the rounding of D − dP, terms of dv's size: the bound is
+            # floored at rel × max|dv| / 10
+            floor = 0.1 * want[2].float().abs().max().item()
+            for i, name in enumerate("qkv"):
+                got_g, want_g = qkv.grad[:, :, i].float(), want[i].float()
+                err = (got_g - want_g).abs().max().item()
+                bound = rel * max(want_g.abs().max().item(), floor)
+                log(f"flash backward {dtype} {shape} d{name}: max_abs_err {err:.3e} (bound {bound:.3e})")
+                assert math.isfinite(err) and err <= bound, (dtype, shape, name, err, bound)
+                worst = max(worst, err)
+            del qkv, do, out, want
+        # times at the train step's flash_bf16 shape
+        b, t, h, hd = TRAIN_ATTN_SHAPE
+        g = torch.Generator(device="cuda").manual_seed(0)
+        qkv = torch.randn((b, t, 3, h, hd), generator=g, device="cuda").to(dtype)
+        do = torch.randn((b, t, h, hd), generator=g, device="cuda").to(dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        scale = hd**-0.5
+        out, lse = flash_attention(q, k, v, scale, with_lse=True)
+        delta = attention_delta(out, do)
+        dqkv = torch.empty_like(qkv)
+
+        def kernels_bwd():
+            flash_attention_bwd_dkv(q, k, v, do, lse, delta, dqkv[:, :, 1], dqkv[:, :, 2], scale)
+            flash_attention_bwd_dq(q, k, v, do, lse, delta, dqkv[:, :, 0], scale)
+
+        leaf = qkv.clone().requires_grad_(True)
+
+        def kernel_fwd_bwd():
+            FlashAttentionQKV.apply(leaf, scale).backward(do)
+
+        fwd_ms = time_ms(lambda: flash_attention(q, k, v, scale), 20)
+        fwd_lse_ms = time_ms(lambda: flash_attention(q, k, v, scale, with_lse=True), 20)
+        ms = time_ms(kernels_bwd, 20)
+        dkv_ms = time_ms(lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, dqkv[:, :, 1],
+                                                         dqkv[:, :, 2], scale), 20)
+        fwd_bwd_ms = time_ms(kernel_fwd_bwd, 10)
+        plain_ms = time_ms(lambda: attention_bwd_reference(q, k, v, out, lse, do, scale), 3)
+        plain_fwd_bwd_ms = time_ms(lambda: attention_bwd_reference(
+            q, k, v, *attention_reference_lse(q, k, v, scale), do, scale), 3)
+        qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_(True) for a in (q, k, v))
+        dot = do.transpose(1, 2)
+        library_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+            .backward(dot), 10)
+        bound_ms, bound_by = attention_bwd_bound_ms(*TRAIN_ATTN_SHAPE, dtype)
+        fb_bound_ms, fb_bound_by = attention_fwd_bwd_bound_ms(*TRAIN_ATTN_SHAPE, dtype)
+        report[dtype] = dict(max_abs_err=worst, max_lse_err=worst_lse,
+                             tolerance=f"o: {fwd_tol}; grads: {rel} x max(max|grad|, max|dv| / 10)",
+                             fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms,
+                             ms=ms, dkv_ms=dkv_ms, dq_ms=ms - dkv_ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, fwd_bwd_ms=fwd_bwd_ms,
+                             plain_fwd_bwd_ms=plain_fwd_bwd_ms, fwd_bwd_bound_ms=fb_bound_ms,
+                             fwd_bwd_bound_by=fb_bound_by, library_ms=library_ms)
+        log(f"flash forward {dtype} at {TRAIN_ATTN_SHAPE}: {fwd_ms:.4f} ms, with log-sum-exp"
+            f" {fwd_lse_ms:.4f} ms")
+        log(f"flash backward {dtype} at {TRAIN_ATTN_SHAPE}: dK/dV + dQ kernels {ms:.4f} ms"
+            f" (dK/dV {dkv_ms:.4f} ms), plain bwd {plain_ms:.4f} ms, bound {bound_ms:.4f} ms"
+            f" ({bound_by}); fwd+bwd {fwd_bwd_ms:.4f} ms, plain {plain_fwd_bwd_ms:.4f} ms, sdpa"
+            f" {library_ms:.4f} ms, bound {fb_bound_ms:.4f} ms ({fb_bound_by})")
+        del qkv, do, out, dqkv, leaf, qt, kt, vt
+    return report
+
+
+def mas_inputs(b, t_x, t_y, lengths, seed):
+    """A log-prior-like value (B, Tx, Ty) and the text × mel mask for
+    per-item (t_x, t_y) lengths, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    value = torch.randn((b, t_x, t_y), generator=g, device="cuda") - 40.0
+    mask = torch.zeros((b, t_x, t_y), device="cuda")
+    for i, (lx, ly) in enumerate(lengths):
+        mask[i, :lx, :ly] = 1.0
+    return value, mask
+
+
+def phase_mas():
+    """K4 against its plain version on the card: exactly equal paths and
+    sum(path) == t_y per item (checked on the host) at bench_train's
+    shape, at ESD's longest buckets and at ragged lengths (t_x = 1,
+    t_x = t_y, t_y < Ty); kernel, plain and bound times (the wrapper timed
+    with the guard off: a direct call with it on reads its check to the
+    host, which a train step does not). → (report, largest |path −
+    plain path| over the cases)."""
+    from dex_tts_tpu_torch.ops.mas import maximum_path, maximum_path_scan, set_mas_guard
+
+    rng = np.random.default_rng(9)
+    long_lengths = [(int(rng.integers(1, 257)), 0) for _ in range(32)]
+    long_lengths = [(lx, int(rng.integers(lx, 1025))) for lx, _ in long_lengths]
+    ragged = [(1, 1), (1, 40), (9, 9), (20, 20), (5, 37), (20, 60), (13, 64), (2, 3)]
+    cases = [((32, 96, 256), [(96, 256)] * 32), ((32, 256, 1024), long_lengths),
+             ((8, 20, 64), ragged), ((3, 300, 700), [(300, 700), (1, 5), (299, 300)])]
+    max_abs_err = 0.0
+    for (b, t_x, t_y), lengths in cases:
+        value, mask = mas_inputs(b, t_x, t_y, lengths, seed=t_y)
+        got = maximum_path(value, mask)
+        want = maximum_path_scan(value, mask)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        max_abs_err = max(max_abs_err, (got - want).abs().max().item())
+        counts = got.sum((1, 2)).cpu().tolist()
+        log(f"mas {(b, t_x, t_y)}: paths equal {same}, sum(path) == t_y"
+            f" {counts == [float(ly) for _, ly in lengths]}")
+        assert same, (b, t_x, t_y)
+        assert counts == [float(ly) for _, ly in lengths], (counts, lengths)
+    report = {}
+    for shape in MAS_SHAPES:
+        value, mask = mas_inputs(*shape, [shape[1:]] * shape[0], seed=1)
+        set_mas_guard(False)
+        try:
+            ms = time_ms(lambda: maximum_path(value, mask), 20)
+        finally:
+            set_mas_guard(True)
+        plain_ms = time_ms(lambda: maximum_path_scan(value, mask), 2, warmup=1)
+        bound_ms = 3 * 4 * value.numel() / PEAK_BYTES * 1e3  # value, mask read; path written
+        report[shape] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                             library_ms=None)
+        log(f"mas at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms"
+            f" (bytes), {ms / shape[2] * 1e3:.3f} us per frame")
+    return report, max_abs_err
 
 
 def snake_bound_ms(b, t, c, dtype, k=12) -> tuple[float, float]:
@@ -326,7 +570,8 @@ def phase_card_vs_cpu():
     want = run(cpu_model, "cpu")
     # the bound must separate a broken kernel: the same run with the
     # attention output zeroed lands far outside it
-    with mock.patch.object(dit, "flash_attention", lambda q, k, v, scale: torch.zeros_like(q)):
+    with mock.patch.object(dit, "flash_attention_qkv",
+                           lambda qkv, scale: torch.zeros_like(qkv[:, :, 0])):
         zeroed = run(cpu_model, "cpu")
     flash_attention.launches = 0
     got = run(gpu_model, "cuda")
@@ -388,6 +633,289 @@ def phase_bigvgan_card_vs_cpu():
     assert math.isfinite(err) and err <= WAV_ATOL, err
     assert identity_err > 10 * WAV_ATOL, identity_err
     return dict(launches=launches, max_abs_err=err, snakes_removed_err=identity_err)
+
+
+TRAIN_OUT_SIZE = 172  # esd: 2 s of mel (22050 Hz, hop 256) → 172 frames
+TRAIN_LOSS_RTOL = 1e-4  # card vs CPU train step, f32 with TF32 off
+TRAIN_GRAD_REL = 1e-3  # × (max|g| + 1e-3 × the model's largest gradient), per tensor
+
+
+def bench_train_batch(b=32, frames=256, n_feats=80, tx=96):
+    """bench_train.py's synthetic batch (bench_train.py:32-49): one seed,
+    every item full length; ref, sty and y share the mel."""
+    rng = np.random.default_rng(0)
+    lens = np.full((b,), frames, np.int32)
+    mel = rng.standard_normal((b, n_feats, frames)).astype(np.float32)
+    return {"x": rng.integers(1, 148, (b, tx)).astype(np.int32),
+            "x_lengths": np.full((b,), tx, np.int32), "y": mel, "y_lengths": lens,
+            "ref": mel, "ref_lengths": lens, "sty": mel, "sty_lengths": lens,
+            "lf0": rng.standard_normal((b, frames)).astype(np.float32), "lf0_lengths": lens}
+
+
+class _PlainAttentionBrokenDq(torch.autograd.Function):
+    """The plain forward with the plain backward, dQ zeroed: a broken
+    backward kernel, for the card-vs-CPU control."""
+
+    @staticmethod
+    def forward(ctx, qkv, scale):
+        from dex_tts_tpu_torch.ops.attention import attention_reference_lse
+
+        out, lse = attention_reference_lse(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], scale)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        from dex_tts_tpu_torch.ops.attention import attention_bwd_reference
+
+        qkv, out, lse = ctx.saved_tensors
+        _, dk, dv = attention_bwd_reference(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], out, lse,
+                                            do, ctx.scale)
+        return torch.stack([torch.zeros_like(dk), dk, dv], dim=2), None
+
+
+def phase_train_card_vs_cpu():
+    """One DeX train step's losses and gradients, card against CPU: a
+    depth-cut DeX at full width (every parameter perturbed, attention
+    "flash", 880 DiT tokens), f32 with TF32 off, the same weights and the
+    same draws (segment offsets, σ, noise), train=False so no dropout. The
+    mel follows the encoder's mu_x along a planted alignment plus noise so
+    MAS is decisive; both devices' paths must be equal first. Two CPU
+    controls must land more than 10× outside the bounds: the path shifted
+    by one frame, and the plain attention backward with dQ zeroed. → report."""
+    import copy
+    import dataclasses
+    from unittest import mock
+
+    from dex_tts_tpu_torch.config import load_preset
+    from dex_tts_tpu_torch.models import dit, tts
+    from dex_tts_tpu_torch.ops.attention import flash_attention, flash_attention_bwd_dq
+    from dex_tts_tpu_torch.ops.mas import MAS_ERRORS, maximum_path
+    from dex_tts_tpu_torch.ops.masks import sequence_mask
+
+    cfg = load_preset("esd").model
+    cfg = dataclasses.replace(cfg, enc_layers=2, tv_layers=2, tiv_layers=2,
+                              dit=dataclasses.replace(cfg.dit, depth=1, attention="flash"))
+    torch.manual_seed(21)
+    cpu_model = tts.build_tts(cfg)
+    perturb_(cpu_model, seed=21)
+    with torch.no_grad():
+        # sharper attention: near-uniform weights would leave dQ too small
+        # for the zeroed-dQ control to show
+        for blk in cpu_model.decoder.denoise_fn.vit.blocks:
+            blk.attn.qkv.weight[:2 * cfg.dit.hidden_size] *= 8.0
+    # module train mode: cuDNN's GRU runs its backward only in it (the
+    # losses stay train=False: no dropout, running BatchNorm statistics)
+    gpu_model = copy.deepcopy(cpu_model).cuda().train()
+    rng = np.random.default_rng(22)
+    b, tx, ty = 2, 64, 256
+    x = torch.from_numpy(rng.integers(1, cfg.n_vocab, (b, tx)))
+    x_lengths = torch.tensor([tx, 50])
+    y_lengths = torch.tensor([ty, 230])
+    mel = torch.from_numpy(rng.standard_normal((b, cfg.n_feats, 200)).astype(np.float32))
+    style = dict(ref=mel, ref_lengths=torch.tensor([200, 150]), sty=mel,
+                 sty_lengths=torch.tensor([200, 150]),
+                 lf0=torch.from_numpy(rng.standard_normal((b, 200)).astype(np.float32)),
+                 lf0_lengths=torch.tensor([200, 150]))
+    with torch.no_grad():
+        cond = cpu_model._cond_from_inputs(**style)
+        mu_x, _, x_mask = cpu_model._encode(x, x_lengths, sty=cond["sty_enc"])
+    planted = torch.zeros(b, tx, ty)
+    for i in range(b):
+        ends = np.round(np.linspace(0, int(y_lengths[i]), int(x_lengths[i]) + 1)).astype(int)
+        for j in range(int(x_lengths[i])):
+            planted[i, j, ends[j]:ends[j + 1]] = 1.0
+    y = torch.einsum("bxt,bxf->bft", planted, mu_x)
+    y = (y + 0.05 * torch.from_numpy(rng.standard_normal(y.shape).astype(np.float32)))
+    y = y * sequence_mask(y_lengths, ty)[:, None, :]
+    draws = {"u": torch.from_numpy(rng.random(b).astype(np.float32)),
+             "sigma": torch.from_numpy(rng.standard_normal((b, 1, 1)).astype(np.float32)),
+             "noise": torch.from_numpy(
+                 rng.standard_normal((b, cfg.n_feats, TRAIN_OUT_SIZE)).astype(np.float32))}
+    inputs = dict(x=x, x_lengths=x_lengths, y=y, y_lengths=y_lengths, **style)
+
+    def mas_path(model, device):
+        kw = {k: v.to(device) for k, v in inputs.items()}
+        with torch.no_grad():
+            c = model._cond_from_inputs(**{k: kw[k] for k in style})
+            m, _, xm = model._encode(kw["x"], kw["x_lengths"], sty=c["sty_enc"])
+            ym = sequence_mask(kw["y_lengths"], ty).float()
+            return maximum_path(tts._log_prior(kw["y"], m, cfg.n_feats),
+                                xm[:, :, 0][:, :, None] * ym[:, None, :]).cpu()
+
+    def run(model, device):
+        model.zero_grad(set_to_none=True)
+        losses = model.compute_loss(**{k: v.to(device) for k, v in inputs.items()},
+                                    out_size=TRAIN_OUT_SIZE, train=False,
+                                    draws={k: v.to(device) for k, v in draws.items()})
+        assert losses.pop(MAS_ERRORS).item() == 0, "the MAS guard counted a broken path"
+        sum(losses.values()).backward()
+        return ({k: v.item() for k, v in losses.items()},
+                {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                 if p.grad is not None})
+
+    def worst_ratio(got, want):
+        """max over loss terms and gradients of error / bound, and where."""
+        losses, grads = want
+        top = max(g.abs().max().item() for g in grads.values())
+        rows = [(abs(got[0][k] - v) / (TRAIN_LOSS_RTOL * abs(v)), k) for k, v in losses.items()]
+        for n, g in grads.items():
+            bound = TRAIN_GRAD_REL * (g.abs().max().item() + 1e-3 * top)
+            rows.append(((got[1][n] - g).abs().max().item() / bound, n))
+        assert sorted(got[1]) == sorted(grads)
+        return max(rows)
+
+    cpu_path = mas_path(cpu_model, "cpu")
+    assert torch.equal(cpu_path, planted), "the plain MAS did not recover the planted path"
+    assert torch.equal(mas_path(gpu_model, "cuda"), cpu_path), "card and CPU MAS paths differ"
+    want = run(cpu_model, "cpu")
+    with mock.patch.object(tts, "maximum_path", lambda v, m, return_errors: (
+            torch.roll(maximum_path(v, m), 1, dims=2) * m, torch.zeros(()))):
+        shifted = worst_ratio(run(cpu_model, "cpu"), want)
+    with mock.patch.object(dit, "flash_attention_qkv", _PlainAttentionBrokenDq.apply):
+        no_dq = worst_ratio(run(cpu_model, "cpu"), want)
+    flash_attention.launches = flash_attention_bwd_dq.launches = maximum_path.launches = 0
+    got = run(gpu_model, "cuda")
+    launches = dict(fwd=flash_attention.launches, bwd_dq=flash_attention_bwd_dq.launches,
+                    mas=maximum_path.launches)
+    ratio = worst_ratio(got, want)
+    log(f"train step card vs CPU (f32, depth-cut DeX, 880 DiT tokens, attention flash):"
+        f" losses {got[0]} vs {want[0]}; worst error/bound {ratio[0]:.3e} ({ratio[1]});"
+        f" controls: path shifted {shifted[0]:.3e} ({shifted[1]}), dQ zeroed {no_dq[0]:.3e}"
+        f" ({no_dq[1]}); launches {launches} (bounds: losses rtol {TRAIN_LOSS_RTOL},"
+        f" grads {TRAIN_GRAD_REL} x (max|g| + 1e-3 x top))")
+    assert ratio[0] <= 1.0, ratio
+    assert shifted[0] > 10 and no_dq[0] > 10, (shifted, no_dq)
+    assert launches == dict(fwd=1, bwd_dq=1, mas=1), launches
+    return dict(worst_ratio=ratio[0], shifted_ratio=shifted[0], no_dq_ratio=no_dq[0])
+
+
+@contextlib.contextmanager
+def torch_tf32_defaults():
+    """PyTorch's own TF32 flags (cuDNN convolutions in TF32, matmuls in
+    full f32), which the port leaves alone, inside a run whose parity
+    phases turned TF32 off."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def build_train_path(attention: str):
+    """The training main path on the card: the ESD preset at full width
+    with DiT attention ``attention``, its train state (seed 100) and step,
+    and bench_train's batch → (model config, resolved attention mode,
+    state, step, batch)."""
+    import dataclasses
+
+    from dex_tts_tpu_torch.config import build_model, load_preset
+    from dex_tts_tpu_torch.models.dit import resolve_attention_mode, token_count
+    from dex_tts_tpu_torch.train import create_train_state, make_train_step
+
+    preset = load_preset("esd")
+    cfg = dataclasses.replace(preset.model,
+                              dit=dataclasses.replace(preset.model.dit, attention=attention))
+    out_size = preset.out_size()
+    assert out_size == TRAIN_OUT_SIZE
+    mode = resolve_attention_mode(cfg.dit_config(), token_count(cfg.dit_config(), out_size // 2),
+                                  train=True)
+    torch.manual_seed(0)
+    state = create_train_state(build_model(cfg, device="cuda"), seed=100, lr=preset.train.lr,
+                               max_grad=preset.train.max_grad)
+    step = make_train_step(out_size=out_size, ema_decay=preset.train.ema_decay)
+    return cfg, mode, state, step, bench_train_batch()
+
+
+def phase_train_main_path(card: str, attention: str, steps: int = 10) -> dict:
+    """The training main path: the ESD preset at full width, f32 at
+    PyTorch's TF32 defaults, on bench_train's synthetic batch (32 × 256
+    frames, 96 tokens, 172-frame crops), through `make_train_step`: one
+    warm-up step, then ``steps`` timed ones, the counts set to 0 just
+    before them and read just after. → launches per kernel, steps/s, peak
+    memory, last metrics."""
+    from dex_tts_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+    from dex_tts_tpu_torch.ops.mas import maximum_path
+    from dex_tts_tpu_torch.train.trainer import metrics_to_host
+
+    cfg, mode, state, step, batch = build_train_path(attention)
+    metrics_to_host(step(state, batch))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq, maximum_path)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        metrics = step(state, batch)
+    last = metrics_to_host(metrics)  # the one host read: synchronises and checks the MAS paths
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[esd train, attention {attention} → {mode}] {steps} steps in {wall:.3f} s:"
+        f" {steps / wall:.4f} steps/s, {steps * 32 / wall:.2f} items/s, peak memory"
+        f" {peak_gb:.2f} GiB, last {last}, launches {launches} [{card}]")
+    assert all(math.isfinite(v) for v in last.values()), last
+    flash = steps * cfg.dit.depth if mode.startswith("flash") else 0
+    assert launches == dict(flash_attention=flash, flash_attention_bwd_dkv=flash,
+                            flash_attention_bwd_dq=flash, maximum_path=steps), launches
+    del state
+    torch.cuda.empty_cache()
+    return dict(mode=mode, launches=launches, steps_per_s=steps / wall,
+                items_per_s=steps * 32 / wall, peak_gib=peak_gb, last=last)
+
+
+def phase_trainer_fit(card: str, directory: str) -> dict:
+    """`Trainer.fit` through the train entry point: the ESD preset at full
+    width, batch 4, two epochs over 16 utterances written to disk from a
+    seed; the checkpoint files appear, and a resume from "last" repeats
+    the next step (same weights, optimizer, EMA and generator; same
+    losses)."""
+    import dataclasses
+
+    from dex_tts_tpu_torch import main as port_main
+    from dex_tts_tpu_torch.config import build_model, load_preset
+    from dex_tts_tpu_torch.train import create_train_state, make_train_step
+    from dex_tts_tpu_torch.train.trainer import metrics_to_host
+
+    train_path, val_path = write_training_set(os.path.join(directory, "data"), 16)
+    preset = load_preset("esd")
+    preset = dataclasses.replace(preset, train_path=train_path, val_path=val_path,
+                                 train=dataclasses.replace(preset.train, epoch=2, batch_size=4))
+    exp = os.path.join(directory, "exp")
+    t0 = time.perf_counter()
+    trainer = port_main.train(preset, exp, seed=1, device="cuda")
+    wall = time.perf_counter() - t0
+    names = sorted(os.listdir(os.path.join(exp, "ckpt")))
+    assert {"last.pth", "best-train.pth", "best-val.pth"} <= set(names), names
+    state = trainer.state
+    assert state.step == 8, state.step
+    torch.manual_seed(5)
+    fresh = create_train_state(build_model(preset.model, device="cuda"), seed=5)
+    trainer.ckpt.restore(fresh, "last")
+    assert fresh.step == state.step
+    for (n, p), q in zip(state.model.state_dict().items(), fresh.model.state_dict().values()):
+        assert torch.equal(p, q), n
+    assert all(torch.equal(state.ema[n], fresh.ema[n]) for n in state.ema)
+    assert torch.equal(state.generator.get_state(), fresh.generator.get_state())
+    batch = next(iter(port_main.make_loaders(preset, seed=1)[0]()))
+    step = make_train_step(out_size=preset.out_size(), ema_decay=preset.train.ema_decay)
+    want = metrics_to_host(step(state, batch))
+    got = metrics_to_host(step(fresh, batch))
+    log(f"Trainer.fit (esd width, batch 4, 2 epochs x 4 steps) {wall:.1f} s, checkpoints"
+        f" {names}; next step live {want}, resumed {got} [{card}]")
+    for k in want:
+        if k == "grad_norm":  # reductions in the backward need not repeat bit for bit
+            assert math.isclose(got[k], want[k], rel_tol=1e-4), (k, got[k], want[k])
+        else:
+            assert got[k] == want[k], (k, got[k], want[k])
+    return dict(checkpoints=names, wall_s=wall, next_step=want)
 
 
 def build_main_path(preset_name: str = "vctk_bench"):
@@ -487,18 +1015,29 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     import tempfile
 
-    from dex_tts_tpu_torch.ops.kernels import build_all
+    from dex_tts_tpu_torch.ops.kernels import build_all, resource_usage
 
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     built = build_all()
     log(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    for source in sorted(built):
+        for line in resource_usage(source):
+            log(f"ptxas {source} {line}")
 
     report = phase_kernels()
     snake = phase_snake()
+    mas, mas_err = phase_mas()
+    bwd = phase_attention_backward()
     phase_card_vs_cpu()
     snake_f32_run = phase_bigvgan_card_vs_cpu()
+    train_parity = phase_train_card_vs_cpu()
+    with torch_tf32_defaults():
+        train = {attention: phase_train_main_path(card, attention)
+                 for attention in ("auto", "flash_bf16")}
+        with tempfile.TemporaryDirectory() as tmp:
+            fit = phase_trainer_fit(card, tmp)
     hifigan = phase_main_path(card, "vctk_bench", {"ref_feats": random_ref_feats(16)},
                               {"ref_feats": random_ref_feats(3, seed=6)})
     with tempfile.TemporaryDirectory() as tmp:
@@ -506,6 +1045,7 @@ def main():
         bigvgan = phase_main_path(card, "vctk_bench_bigvgan", {"ref_wavs": wavs},
                                   {"ref_wavs": wavs[:3]})
     paths = {"hifigan": hifigan["request_1"]["launches"], "bigvgan": bigvgan["request_1"]["launches"]}
+    train_launches = {f"train_{k}": v["launches"] for k, v in train.items()}
 
     bf16, f32 = report[torch.bfloat16], report[torch.float32]
     sb, sf = snake[torch.bfloat16], snake[torch.float32]
@@ -517,7 +1057,8 @@ def main():
         "replaces": "dex_tts_tpu/models/dit.py:410",
         "replaces_also": "dex_tts_tpu/models/dit.py:367",
         "launches": paths["hifigan"]["flash_attention"],
-        "launches_by_path": {k: v["flash_attention"] for k, v in paths.items()},
+        "launches_by_path": {**{k: v["flash_attention"] for k, v in paths.items()},
+                             **{k: v["flash_attention"] for k, v in train_launches.items()}},
         "max_abs_err": bf16["max_abs_err"],
         "ms": bf16["ms"],
         "plain_ms": bf16["plain_ms"],
@@ -528,6 +1069,50 @@ def main():
         "dtype": "bfloat16",
         "max_abs_err_f32": f32["max_abs_err"],
         "f32": {k: f32[k] for k in timing_keys},
+        "card": card,
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "dex_tts_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+        "replaces_also": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+        "reached_from": "dex_tts_tpu/models/dit.py:410",
+        # the dK/dV and the dQ kernel, one launch each per attention call
+        "launches": (train["flash_bf16"]["launches"]["flash_attention_bwd_dkv"]
+                     + train["flash_bf16"]["launches"]["flash_attention_bwd_dq"]),
+        "launches_by_path": {k: v["flash_attention_bwd_dkv"] + v["flash_attention_bwd_dq"]
+                             for k, v in train_launches.items()},
+        "max_abs_err": bwd[torch.bfloat16]["max_abs_err"],
+        # every time covers one FlashAttentionQKV forward (with the
+        # log-sum-exp) and backward, the call a train step makes, as the
+        # library's (SDPA forward + backward on the same views) does; the
+        # backward kernels alone are under "bf16" and "f32"
+        "ms": bwd[torch.bfloat16]["fwd_bwd_ms"],
+        "plain_ms": bwd[torch.bfloat16]["plain_fwd_bwd_ms"],
+        "bound_ms": bwd[torch.bfloat16]["fwd_bwd_bound_ms"],
+        "bound_by": bwd[torch.bfloat16]["fwd_bwd_bound_by"],
+        "library_ms": bwd[torch.bfloat16]["library_ms"],
+        "covers": "forward with log-sum-exp + backward",
+        "shape": list(TRAIN_ATTN_SHAPE),
+        "dtype": "bfloat16",
+        "bf16": {k: v for k, v in bwd[torch.bfloat16].items()},
+        "f32": {k: v for k, v in bwd[torch.float32].items()},
+        "card": card,
+    }, {
+        "name": "mas",
+        "route": "cuda",
+        "source": "dex_tts_tpu_torch/csrc/mas.cu",
+        "replaces": "dex_tts_tpu/ops/mas.py:247",
+        "launches": train["flash_bf16"]["launches"]["maximum_path"],
+        "launches_by_path": {k: v["maximum_path"] for k, v in train_launches.items()},
+        "max_abs_err": mas_err,
+        "ms": mas[MAS_SHAPES[0]]["ms"],
+        "plain_ms": mas[MAS_SHAPES[0]]["plain_ms"],
+        "bound_ms": mas[MAS_SHAPES[0]]["bound_ms"],
+        "bound_by": mas[MAS_SHAPES[0]]["bound_by"],
+        "library_ms": None,  # no PyTorch call computes MAS
+        "shape": list(MAS_SHAPES[0]),
+        "by_shape": {str(k): v for k, v in mas.items()},
         "card": card,
     }, {
         "name": "snake",
@@ -555,7 +1140,10 @@ def main():
         "card": card,
     }]
     log(f"main paths: HiFi-GAN request 1 RTF {hifigan['request_1']['rtf']:.6f}, BigVGAN request 1"
-        f" RTF {bigvgan['request_1']['rtf']:.6f}")
+        f" RTF {bigvgan['request_1']['rtf']:.6f}; esd train steps/s "
+        + ", ".join(f"{k} {v['steps_per_s']:.4f}" for k, v in train.items())
+        + f"; train card vs CPU worst error/bound {train_parity['worst_ratio']:.3e};"
+        f" Trainer.fit {fit['wall_s']:.1f} s")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,10 @@ in the JAX package. Parameter names match the reference state_dict.
 Attention routes as the JAX package routes it (`resolve_attention_mode`):
 "einsum" is MHSA's own plain einsum; "flash", "flash_bf16", "splash" and
 "splash_bf16" all launch the hand-written Hopper kernel on CUDA
-(`ops/attention.py`), whose plain version serves CPU tensors.
+(`ops/attention.py`), whose plain version serves CPU tensors; with grad
+enabled the kernel runs under its autograd Function, whose backward is
+the kernel's backward. In train mode with ``mask_ratio`` > 0 the DiT
+keeps a random subset of tokens (MAE-style, reference: dit.py:139-212).
 """
 
 from __future__ import annotations
@@ -19,8 +22,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dex_tts_tpu_torch.models.layers import TimestepEmbedder, run_in
-from dex_tts_tpu_torch.ops.attention import flash_attention
+from dex_tts_tpu_torch.models.layers import TimestepEmbedder, run_in, train_uniform
+from dex_tts_tpu_torch.ops.attention import flash_attention_qkv
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -125,9 +128,7 @@ class MHSA(nn.Module):
             # JAX package falls back to its einsum in the compute dtype, and
             # the plain version here does the same
             kdt = torch.bfloat16 if mode.endswith("_bf16") and x.is_cuda else dt
-            qkv = qkv.to(kdt)
-            out = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], hd**-0.5)
-            out = out.to(dt)
+            out = flash_attention_qkv(qkv.to(kdt), hd**-0.5).to(dt)
         elif mode == "einsum":
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
             scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * hd**-0.5
@@ -183,9 +184,19 @@ class FinalLayer(nn.Module):
         return run_in(self.linear, x, self.cfg.compute_dtype)
 
 
+def token_mask(batch: int, length: int, mask_ratio: float, like: torch.Tensor):
+    """MAE-style random keep/restore index sets (keep count
+    int(length·(1 − mask_ratio))), from the train-mode generator.
+    reference: DEX-TTS/model/dit.py:139-157."""
+    len_keep = int(length * (1 - mask_ratio))
+    ids_shuffle = torch.argsort(train_uniform((batch, length), like), dim=1)
+    ids_restore = torch.argsort(ids_shuffle, dim=1)
+    return ids_shuffle[:, :len_keep], ids_restore
+
+
 class DiT(nn.Module):
     """patchify → pos embeds → blocks → final → unpatchify → crop/mask.
-    reference: DEX-TTS/model/dit.py:328-519 (eval; no token masking)."""
+    reference: DEX-TTS/model/dit.py:328-519."""
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
@@ -214,7 +225,7 @@ class DiT(nn.Module):
         self.blocks = nn.ModuleList(DiTBlock(cfg) for _ in range(cfg.depth))
         self.final_layer = FinalLayer(cfg)
 
-    def forward(self, x, mask, t, train: bool = False):
+    def forward(self, x, mask, t, train: bool = False, mask_ratio: float = 0.0):
         """x: (B, C, H, W) mid feature; mask: (B, 1, 1, W) binary; t: (B,)
         noise-level embedding input (c_noise)."""
         cfg = self.cfg
@@ -234,9 +245,19 @@ class DiT(nn.Module):
         x = x + pos[:, :, :, :wp].to(x.dtype)
         x = x + self.freq_new_pos_embed.to(x.dtype)
         tokens = x.flatten(2).transpose(1, 2)  # (B, H'·W', D), freq-major
+        n_tokens = tokens.shape[1]
+        use_mask = train and mask_ratio > 0
+        if use_mask:
+            ids_keep, ids_restore = token_mask(b, n_tokens, mask_ratio, tokens)
+            tokens = torch.gather(tokens, 1, ids_keep[:, :, None].expand(-1, -1, tokens.shape[2]))
 
         for blk in self.blocks:
             tokens = blk(tokens, t_emb, train)
+        if use_mask:
+            # zero tokens re-inserted at the masked positions (reference: dit.py:200-206)
+            filler = tokens.new_zeros((b, n_tokens - tokens.shape[1], tokens.shape[2]))
+            tokens = torch.cat([tokens, filler], dim=1)
+            tokens = torch.gather(tokens, 1, ids_restore[:, :, None].expand(-1, -1, tokens.shape[2]))
         out = self.final_layer(tokens, t_emb)  # (B, N, s²·C)
 
         s = cfg.stride_size

@@ -1,14 +1,16 @@
-"""EDM preconditioning and the euler/heun ODE sampler (port of
-dex_tts_tpu/models/edm.py).
+"""EDM preconditioning, the training loss and the euler/heun ODE sampler
+(port of dex_tts_tpu/models/edm.py).
 
-reference: DEX-TTS/model/edm.py:22-211. Every schedule quantity is a
-host-side numpy array precomputed by `build_schedule` (a copy of the JAX
-package's); the sampling loop is a Python loop of denoiser evaluations.
-dpmpp2m and the DiT-cache sampler are not ported yet.
+reference: DEX-TTS/model/edm.py:22-211. Training noise is mu-shifted,
+n = (randn + mu)·σ (reference: model/edm.py:64). Every schedule quantity
+is a host-side numpy array precomputed by `build_schedule` (a copy of the
+JAX package's); the sampling loop is a Python loop of denoiser
+evaluations. dpmpp2m and the DiT-cache sampler are not ported yet.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -29,6 +31,48 @@ def apply_precond(denoise_fn, x, sigma, sigma_data: float = 0.5, **kwargs):
     c_skip, c_out, c_in, _ = edm_precond_scalings(sigma.reshape(-1, 1, 1), sigma_data)
     c_noise = torch.log(sigma) / 4.0
     return c_skip * x + c_out * denoise_fn(c_in * x, c_noise, **kwargs)
+
+
+def edm_loss_weight(sigma, loss_type: str = "base", sigma_data: float = 0.5):
+    """Per-σ loss weight, every reference variant.
+    reference: DEX-TTS/model/edm.py:37-62."""
+    base = (sigma**2 + sigma_data**2) / (sigma * sigma_data) ** 2
+    snr = 1.0 / sigma**2
+    if loss_type == "base":
+        return base
+    if loss_type.startswith("base_min_"):
+        return torch.clamp(base, max=float(loss_type.removeprefix("base_min_")))
+    if loss_type.startswith("base_log_"):
+        k = float(loss_type.removeprefix("base_log_"))
+        return torch.where(base >= k, torch.log(base) + (k - math.log(k)), base)
+    if loss_type.startswith("min_snr_"):
+        return torch.clamp(snr, max=float(loss_type.removeprefix("min_snr_")))
+    if loss_type.startswith("max_snr_"):
+        return torch.clamp(snr, min=float(loss_type.removeprefix("max_snr_")))
+    if loss_type == "snr":
+        return snr
+    if loss_type == "inv_snr":
+        return 1.0 / snr
+    raise ValueError(f"unknown loss_type {loss_type!r}")
+
+
+def edm_loss(denoise_fn, x0, mask, mu, n_feats: int = 80, p_mean: float = -1.2,
+             p_std: float = 1.2, sigma_data: float = 0.5, loss_type: str = "base",
+             generator=None, draws=None, **kwargs):
+    """EDM training loss with mu-shifted noise. x0, mu (B, F, W), mask
+    (B, 1, W). σ = exp(r·p_std + p_mean) per item; ``draws`` = (r (B, 1, 1),
+    noise (B, F, W)), standard normals, else both drawn from
+    ``generator``. reference: DEX-TTS/model/edm.py:22-68."""
+    if draws is None:
+        rnd = torch.randn((x0.shape[0], 1, 1), generator=generator, device=x0.device)
+        noise = torch.randn(x0.shape, generator=generator, device=x0.device)
+    else:
+        rnd, noise = draws
+    sigma = torch.exp(rnd.to(x0.dtype) * p_std + p_mean)
+    weight = edm_loss_weight(sigma, loss_type, sigma_data)
+    n = (noise.to(x0.dtype) + mu) * sigma
+    d_x = apply_precond(denoise_fn, x0 + n, sigma[:, 0, 0], sigma_data, **kwargs)
+    return (weight * (d_x - x0) ** 2).sum() / (mask.sum() * n_feats)
 
 
 @dataclass(frozen=True)

@@ -5,10 +5,16 @@ images (B, C, H, W), masks (B, 1, T) multiplicative floats. Parameter
 names match the reference state_dict. Parameters stay float32; where the
 JAX package computes in a lower "compute dtype", `run_in` casts the
 weights at the call, as flax's ``dtype=`` does.
+
+Train mode is a ``train`` argument, as in the JAX package, never
+``nn.Module.training``. Dropout, DropPath and the DiT's token mask draw
+from an explicit generator, installed for a step with `dropout_generator`
+(the JAX package's "dropout" rng); nothing reads the global RNG.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -30,6 +36,69 @@ def run_in(mod: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
             mod.dilation,
         )
     return mod._conv_forward(x, w, b)
+
+
+_GENERATORS: list = []
+
+
+@contextlib.contextmanager
+def dropout_generator(generator: torch.Generator):
+    """Train-mode dropout, DropPath and token masks inside this block draw
+    from ``generator`` (on the tensors' device)."""
+    if not isinstance(generator, torch.Generator):
+        raise TypeError(f"train-mode dropout needs a torch.Generator, got {generator!r}")
+    _GENERATORS.append(generator)
+    try:
+        yield generator
+    finally:
+        _GENERATORS.pop()
+
+
+def train_uniform(shape, like: torch.Tensor) -> torch.Tensor:
+    """Uniform [0, 1) draws for a train-mode random mask, from the
+    generator of the enclosing `dropout_generator` block."""
+    if not _GENERATORS:
+        raise RuntimeError("train-mode dropout needs a generator: wrap the call in "
+                           "layers.dropout_generator(generator)")
+    return torch.rand(shape, generator=_GENERATORS[-1], device=like.device)
+
+
+def dropout(x, p: float, train: bool):
+    """flax ``nn.Dropout``: keep each element with probability 1 - p and
+    scale it by 1 / (1 - p); the identity outside train mode."""
+    if not train or p == 0.0:
+        return x
+    keep = 1.0 - p
+    return torch.where(train_uniform(x.shape, x) < keep, x / keep, torch.zeros_like(x))
+
+
+def drop_path(x, p: float, train: bool):
+    """Stochastic depth on the batch dim (timm drop_path).
+    reference: DEX-TTS/model/retention.py:383-394."""
+    if not train or p == 0.0:
+        return x
+    keep = 1.0 - p
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    return torch.where(train_uniform(shape, x) < keep, x / keep, torch.zeros_like(x))
+
+
+def batch_norm(bn: nn.BatchNorm1d, x, train: bool):
+    """BatchNorm over (B, C, T) with flax's semantics. Eval: the running
+    statistics. Train: batch statistics over (B, T) in f32 (variance
+    E[x²] − E[x]², clipped at 0), and the running statistics updated in
+    place as 0.99·running + 0.01·batch, with the biased variance (flax
+    momentum 0.99 = torch momentum 0.01)."""
+    if not train:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                            False, 0.0, bn.eps)
+    xf = x.float()
+    mean = xf.mean((0, 2))
+    var = torch.clamp((xf**2).mean((0, 2)) - mean**2, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(0.99).add_(mean.detach(), alpha=1 - 0.99)
+        bn.running_var.mul_(0.99).add_(var.detach(), alpha=1 - 0.99)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return ((x - mean[None, :, None]) * mul[None, :, None] + bn.bias[None, :, None]).to(x.dtype)
 
 
 def mish(x):
@@ -98,11 +167,13 @@ class AdaptiveLayerNorm(nn.Module):
 
 
 class ConvReluNorm(nn.Module):
-    """Conv prenet: n_layers of [conv k → LN → relu], residual 1x1
-    projection (zero at init). reference: DEX-TTS/model/text_encoder.py:32-63."""
+    """Conv prenet: n_layers of [conv k → LN → relu → dropout], residual
+    1x1 projection (zero at init). reference: DEX-TTS/model/text_encoder.py:32-63."""
 
-    def __init__(self, channels: int, kernel_size: int = 5, n_layers: int = 3):
+    def __init__(self, channels: int, kernel_size: int = 5, n_layers: int = 3,
+                 p_dropout: float = 0.5):
         super().__init__()
+        self.p_dropout = p_dropout
         self.conv_layers = nn.ModuleList(
             nn.Conv1d(channels, channels, kernel_size, padding=kernel_size // 2)
             for _ in range(n_layers)
@@ -114,20 +185,22 @@ class ConvReluNorm(nn.Module):
         nn.init.zeros_(self.proj.weight)
         nn.init.zeros_(self.proj.bias)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, train: bool = False):
         org = x
         for conv, norm in zip(self.conv_layers, self.norm_layers):
-            x = torch.relu(norm(conv(x * mask)))
+            x = dropout(torch.relu(norm(conv(x * mask))), self.p_dropout, train)
         return (org + self.proj(x)) * mask
 
 
 class DurationPredictor(nn.Module):
-    """Two [conv → relu → LN] blocks + 1x1 projection, all masked.
-    reference: DEX-TTS/model/text_encoder.py:66-92 (out=1) and
+    """Two [conv → relu → LN → dropout] blocks + 1x1 projection, all
+    masked. reference: DEX-TTS/model/text_encoder.py:66-92 (out=1) and
     ref_encoder.py:8-34 (Projection, out=c_h)."""
 
-    def __init__(self, c_in: int, c_h: int, out: int = 1, kernel_size: int = 3):
+    def __init__(self, c_in: int, c_h: int, out: int = 1, kernel_size: int = 3,
+                 p_dropout: float = 0.1):
         super().__init__()
+        self.p_dropout = p_dropout
         pad = kernel_size // 2
         self.conv_1 = nn.Conv1d(c_in, c_h, kernel_size, padding=pad)
         self.norm_1 = ChannelLayerNorm(c_h)
@@ -135,16 +208,16 @@ class DurationPredictor(nn.Module):
         self.norm_2 = ChannelLayerNorm(c_h)
         self.proj = nn.Conv1d(c_h, out, 1)
 
-    def forward(self, x, mask):
-        x = self.norm_1(torch.relu(self.conv_1(x * mask)))
-        x = self.norm_2(torch.relu(self.conv_2(x * mask)))
+    def forward(self, x, mask, train: bool = False):
+        x = dropout(self.norm_1(torch.relu(self.conv_1(x * mask))), self.p_dropout, train)
+        x = dropout(self.norm_2(torch.relu(self.conv_2(x * mask))), self.p_dropout, train)
         return self.proj(x * mask) * mask
 
 
 class BasicConv(nn.Module):
     """Conv1d k3 without bias (+BatchNorm | LayerNorm) (+ReLU); the
     reference order is conv → BN → relu but conv → relu → LN. BatchNorm
-    uses its running statistics (eval). reference: DEX-TTS/model/base.py:34-65."""
+    follows `batch_norm`. reference: DEX-TTS/model/base.py:34-65."""
 
     def __init__(self, c_in: int, c_out: int, relu: bool = True, norm=None):
         super().__init__()
@@ -153,10 +226,10 @@ class BasicConv(nn.Module):
         self.bn = nn.BatchNorm1d(c_out, eps=1e-5, momentum=0.01) if norm == "bn" else None
         self.ln = nn.LayerNorm(c_out, eps=1e-5) if norm == "ln" else None
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         x = self.conv(x)
         if self.bn is not None:
-            x = self.bn(x)
+            x = batch_norm(self.bn, x, train)
         if self.relu:
             x = torch.relu(x)
         if self.ln is not None:

@@ -1,7 +1,6 @@
-"""Reference-speech style modelling (DEX only), eval path: time-variable
-(TV) and time-invariant (TIV) style encoders, lf0 encoder, the EMA vector
-quantizer's codebook lookup, and the two bottleneck adaptors (port of
-dex_tts_tpu/models/ref_encoder.py).
+"""Reference-speech style modelling (DEX only): time-variable (TV) and
+time-invariant (TIV) style encoders, lf0 encoder, the EMA vector quantizer,
+and the two bottleneck adaptors (port of dex_tts_tpu/models/ref_encoder.py).
 
 reference: DEX-TTS/model/ref_encoder.py:8-273. Sequences are (B, C, T),
 masks (B, 1, T), the U-Net mid feature (B, C, H, W).
@@ -23,11 +22,11 @@ from dex_tts_tpu_torch.models.layers import (
 
 
 class Projection(DurationPredictor):
-    """conv→relu→LN ×2 → 1x1 proj to c_h, all masked.
+    """conv→relu→LN→dropout(0.1) ×2 → 1x1 proj to c_h, all masked.
     reference: DEX-TTS/model/ref_encoder.py:8-34."""
 
     def __init__(self, c_in: int, c_h: int, kernel_size: int = 3):
-        super().__init__(c_in, c_h, c_h, kernel_size)
+        super().__init__(c_in, c_h, c_h, kernel_size, p_dropout=0.1)
 
 
 class LF0Encoder(nn.Module):
@@ -43,12 +42,13 @@ class LF0Encoder(nn.Module):
         self.out_conv = BasicConv(c_h, c_out, relu=True, norm="ln")
         self.proj = Projection(c_out, c_out_g)
 
-    def forward(self, lf0, mask):
-        """lf0 (B, T), mask (B, 1, T) → (enc (B, c_out, T), dec (B, c_out_g, T))."""
+    def forward(self, lf0, mask, train: bool = False):
+        """lf0 (B, T), mask (B, 1, T) → (enc (B, c_out, T), dec (B, c_out_g, T));
+        the decoder branch sees the encoder output detached."""
         x = self.in_conv(lf0[:, None, :] * mask) * mask
         x, _ = self.rnn_layer(x.transpose(1, 2))
         x = self.out_conv(x.transpose(1, 2) * mask) * mask
-        return x, self.proj(x, mask)
+        return x, self.proj(x.detach(), mask, train)
 
 
 class ResidualConvBlock(nn.Module):
@@ -62,35 +62,55 @@ class ResidualConvBlock(nn.Module):
             BasicConv(c_h, c, relu=False, norm=None),
         )
 
-    def forward(self, x):
-        return x + self.conv_block(x)
+    def forward(self, x, train: bool = False):
+        return x + self.conv_block[1](self.conv_block[0](x, train))
 
 
 class VQEmbeddingEMA(nn.Module):
-    """EMA vector quantizer, eval path: nearest-codebook lookup with the
-    straight-through expression of the JAX package (the EMA update is
-    training-only). reference: DEX-TTS/model/ref_encoder.py:181-237."""
+    """EMA-updated vector quantizer with a straight-through estimator.
+    The codebook state (``embedding``, ``ema_count``, ``ema_weight``) is
+    buffers, updated in place under no_grad in train mode, as the JAX
+    package updates its "vq_stats" collection.
+    reference: DEX-TTS/model/ref_encoder.py:181-237."""
 
-    def __init__(self, n_embeddings: int = 512, embedding_dim: int = 192):
+    def __init__(self, n_embeddings: int = 512, embedding_dim: int = 192,
+                 commitment_cost: float = 0.25, decay: float = 0.999, epsilon: float = 1e-5):
         super().__init__()
+        self.commitment_cost = commitment_cost
+        self.decay = decay
+        self.epsilon = epsilon
         bound = 1.0 / n_embeddings
         emb = torch.empty(n_embeddings, embedding_dim).uniform_(-bound, bound)
         self.register_buffer("embedding", emb)
         self.register_buffer("ema_count", torch.zeros(n_embeddings))
         self.register_buffer("ema_weight", emb.clone())
 
-    def forward(self, x, mask):
-        """x (B, T, D), mask (B, T, 1) → quantized (B, T, D)."""
+    def forward(self, x, mask, train: bool = False):
+        """x (B, T, D), mask (B, T, 1) → (quantized (B, T, D), commitment
+        loss). Train mode moves the codebook after the lookup."""
         x = x * mask
+        m, d = self.embedding.shape
         codes = self.embedding
-        flat = x.reshape(-1, codes.shape[1])
+        flat = x.detach().reshape(-1, d)
         dist = (
             (codes**2).sum(1)[None, :]
             + (flat**2).sum(1, keepdim=True)
             - 2.0 * flat @ codes.t()
         )
-        quant = codes[dist.argmin(-1)].reshape(x.shape)
-        return (x + (quant - x)) * mask
+        indices = dist.argmin(-1)
+        quant = codes[indices].reshape(x.shape)
+        if train:
+            with torch.no_grad():
+                onehot = torch.nn.functional.one_hot(indices, m).to(flat.dtype)
+                new_count = self.decay * self.ema_count + (1 - self.decay) * onehot.sum(0)
+                n = new_count.sum()
+                new_count = (new_count + self.epsilon) / (n + m * self.epsilon) * n
+                new_weight = self.decay * self.ema_weight + (1 - self.decay) * (onehot.t() @ flat)
+                self.ema_count.copy_(new_count)
+                self.ema_weight.copy_(new_weight)
+                self.embedding.copy_(new_weight / new_count[:, None])
+        e_latent = ((x * mask - quant * mask) ** 2).sum() / (mask.sum() * d)
+        return (x + (quant - x).detach()) * mask, self.commitment_cost * e_latent
 
 
 class TVEncoder(nn.Module):
@@ -98,27 +118,27 @@ class TVEncoder(nn.Module):
     branch. reference: DEX-TTS/model/ref_encoder.py:108-140."""
 
     def __init__(self, c_in=80, c_h=128, c_out=192, c_out_g=192, num_layer=6,
-                 n_emb=512):
+                 n_emb=512, commit_w=0.25):
         super().__init__()
         self.in_conv = BasicConv(c_in, c_h, relu=True, norm="ln")
         self.conv_blocks = nn.ModuleList(
             ResidualConvBlock(c_h, c_h, "ln") for _ in range(num_layer)
         )
         self.out_conv = BasicConv(c_h, c_out, relu=False, norm=None)
-        self.vq = VQEmbeddingEMA(n_emb, c_out)
+        self.vq = VQEmbeddingEMA(n_emb, c_out, commit_w)
         self.proj_0 = Projection(c_out, c_out_g)
         self.proj_1 = BasicConv(c_out_g, c_out_g, relu=True, norm="bn")
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, train: bool = False):
         """x (B, n_mels, T), mask (B, 1, T) → (pre-VQ (B, c_out, T),
-        decoder branch (B, c_out_g, T))."""
+        decoder branch (B, c_out_g, T), VQ commitment loss)."""
         x = self.in_conv(x * mask) * mask
         for blk in self.conv_blocks:
             x = blk(x * mask) * mask
         z = self.out_conv(x * mask) * mask
-        q = self.vq(z.transpose(1, 2), mask.transpose(1, 2)).transpose(1, 2)
-        dec = self.proj_0(q, mask)
-        return z, self.proj_1(dec * mask) * mask
+        q, vq_loss = self.vq(z.transpose(1, 2), mask.transpose(1, 2), train)
+        dec = self.proj_0(q.transpose(1, 2).detach(), mask, train)
+        return z, self.proj_1(dec * mask, train) * mask, vq_loss
 
 
 class TIVEncoder(nn.Module):
@@ -134,15 +154,15 @@ class TIVEncoder(nn.Module):
         )
         self.out_conv = BasicConv(c_h, c_out, relu=True, norm="bn")
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, train: bool = False):
         """x (B, n_mels, T) → (out (B, c_out, T), skips [(B, c_h, T)])."""
-        x = self.in_conv(x * mask) * mask
+        x = self.in_conv(x * mask, train) * mask
         skips = []
         for blk in self.conv_blocks:
-            x = blk(x * mask) * mask
+            x = blk(x * mask, train) * mask
             skips.append(x)
             x = instance_norm_1d(x)
-        return self.out_conv(x * mask) * mask, skips
+        return self.out_conv(x * mask, train) * mask, skips
 
 
 def stack_skip_stats(skips):

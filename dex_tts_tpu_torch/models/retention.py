@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dex_tts_tpu_torch.models.layers import AdaptiveLayerNorm, RMSNorm
+from dex_tts_tpu_torch.models.layers import AdaptiveLayerNorm, RMSNorm, drop_path, dropout
 
 
 EPS = 1e-6  # the RMSNorms' epsilon (reference RetNetConfig.layernorm_eps)
@@ -27,12 +27,16 @@ EPS = 1e-6  # the RMSNorms' epsilon (reference RetNetConfig.layernorm_eps)
 class RetNetEncoderConfig:
     """reference: DEX-TTS/model/retnet_cfg.py:14-117, the knobs the TTS text
     encoder sets (value width = embed width, gelu GLU, per-head decay
-    without the LM schedule; dropout and drop-path are training-only)."""
+    without the LM schedule). Dropout, activation dropout and the
+    drop-path rate (linear over the layers) act in train mode only."""
 
     embed_dim: int = 192
     ffn_dim: int = 1024
     num_layers: int = 8
     num_heads: int = 2
+    dropout: float = 0.1
+    activation_dropout: float = 0.0
+    drop_path_rate: float = 0.1
     use_softmax: bool = True
     use_decay: bool = False
     use_adaln: bool = False
@@ -93,7 +97,7 @@ class MultiScaleRetention(nn.Module):
         self.out_proj = nn.Linear(d, d, bias=False)
         self.norm = RMSNorm(d // cfg.num_heads, EPS, False)
 
-    def forward(self, x, sin, cos, decay_mask):
+    def forward(self, x, sin, cos, decay_mask, train: bool = False):
         cfg = self.cfg
         b, t, d = x.shape
         h = cfg.num_heads
@@ -113,8 +117,9 @@ class MultiScaleRetention(nn.Module):
             scores = scores.masked_fill(decay_mask == 0, -1e4)
             weights = scores.softmax(dim=-1)
         else:
-            denom = scores.sum(-1, keepdim=True).abs().clamp(min=1.0)
+            denom = scores.sum(-1, keepdim=True).detach().abs().clamp(min=1.0)
             weights = scores / denom
+        weights = dropout(weights, 0.1, train)
         out = torch.einsum("bhts,bhsd->bhtd", weights, v.float()).to(x.dtype)
         out = self.norm(out.transpose(1, 2)).reshape(b, t, d)
         return self.out_proj(F.silu(g) * out)
@@ -126,21 +131,28 @@ class GLU(nn.Module):
 
     def __init__(self, cfg: RetNetEncoderConfig):
         super().__init__()
+        self.cfg = cfg
         self.fc1 = nn.Linear(cfg.embed_dim, cfg.ffn_dim, bias=False)
         self.fc2 = nn.Linear(cfg.ffn_dim, cfg.embed_dim, bias=False)
         self.gate = nn.Linear(cfg.embed_dim, cfg.ffn_dim, bias=False)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         hidden = F.gelu(self.fc1(x).float(), approximate="tanh").to(x.dtype) * self.gate(x)
-        return self.fc2(hidden)
+        hidden = dropout(hidden, self.cfg.activation_dropout, train)
+        return dropout(self.fc2(hidden), self.cfg.dropout, train)
 
 
 class RetNetEncoderLayer(nn.Module):
     """Pre-norm retention block, optional style AdaLN after each sublayer.
     reference: model/retention.py:397-514."""
 
-    def __init__(self, cfg: RetNetEncoderConfig):
+    def __init__(self, cfg: RetNetEncoderConfig, depth: int = 0):
         super().__init__()
+        self.cfg = cfg
+        self.drop_prob = float(
+            np.linspace(0, cfg.drop_path_rate, cfg.num_layers)[depth]
+            if cfg.drop_path_rate > 0 else 0.0
+        )
         self.retention = MultiScaleRetention(cfg)
         self.retention_layer_norm = RMSNorm(cfg.embed_dim, EPS)
         self.ffn = GLU(cfg)
@@ -150,11 +162,13 @@ class RetNetEncoderLayer(nn.Module):
             self.adaln_1 = AdaptiveLayerNorm(cfg.embed_dim)
             self.adaln_2 = AdaptiveLayerNorm(cfg.embed_dim)
 
-    def forward(self, x, sin, cos, decay_mask, sty=None):
-        x = x + self.retention(self.retention_layer_norm(x), sin, cos, decay_mask)
+    def forward(self, x, sin, cos, decay_mask, sty=None, train: bool = False):
+        h = self.retention(self.retention_layer_norm(x), sin, cos, decay_mask, train)
+        h = dropout(h, self.cfg.dropout, train)
+        x = x + drop_path(h, self.drop_prob, train)
         if self.use_adaln:
             x = self.adaln_1(x, sty)
-        x = x + self.ffn(self.final_layer_norm(x))
+        x = x + drop_path(self.ffn(self.final_layer_norm(x), train), self.drop_prob, train)
         if self.use_adaln:
             x = self.adaln_2(x, sty)
         return x
@@ -167,13 +181,13 @@ class RetNetEncoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.layers = nn.ModuleList(
-            RetNetEncoderLayer(cfg) for _ in range(cfg.num_layers)
+            RetNetEncoderLayer(cfg, i) for i in range(cfg.num_layers)
         )
         self.layer_norm = RMSNorm(cfg.embed_dim, EPS)
 
-    def forward(self, x, retention_mask, sty=None):
+    def forward(self, x, retention_mask, sty=None, train: bool = False):
         """x (B, T, C); retention_mask (B, T) 0/1."""
         sin, cos, decay_mask = rel_pos(self.cfg, x.shape[1], retention_mask)
         for layer in self.layers:
-            x = layer(x, sin, cos, decay_mask, sty)
+            x = layer(x, sin, cos, decay_mask, sty, train)
         return self.layer_norm(x)

@@ -1,22 +1,27 @@
 """Model facades: GeDEXTTS (general) and DeXTTS (expressive, reference-
-speech conditioned), inference path (port of dex_tts_tpu/models/tts.py).
+speech conditioned): synthesis and the training losses (port of
+dex_tts_tpu/models/tts.py).
 
 reference: GeDEX-TTS/model/tts.py:15-122 and DEX-TTS/model/tts.py:14-153.
 Module names follow the reference state_dict. The public methods keep the
 JAX package's layouts: mu_x (B, Tx, F), logw and x_mask (B, Tx, 1), mels
-(B, F, Ty). Training (compute_loss) is not ported yet.
+(B, F, Ty). `compute_loss` runs MAS on the tensors' device (the K4 kernel
+on CUDA, `ops/mas.py`) and cuts the training segment there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import torch
 import torch.nn as nn
 
 from dex_tts_tpu_torch.models.dit import DiTConfig
-from dex_tts_tpu_torch.models.edm import SamplerConfig, ablation_sampler
+from dex_tts_tpu_torch.models.edm import SamplerConfig, ablation_sampler, edm_loss
+from dex_tts_tpu_torch.models.layers import dropout_generator
 from dex_tts_tpu_torch.models.ref_encoder import (
     LF0Encoder,
     TIVEncoder,
@@ -25,7 +30,20 @@ from dex_tts_tpu_torch.models.ref_encoder import (
 )
 from dex_tts_tpu_torch.models.text_encoder import TextEncoder
 from dex_tts_tpu_torch.models.unet import DiffusionDenoiser
-from dex_tts_tpu_torch.ops.masks import generate_path, sequence_mask
+from dex_tts_tpu_torch.ops.mas import MAS_ERRORS, maximum_path
+from dex_tts_tpu_torch.ops.masks import duration_loss, generate_path, sequence_mask
+from dex_tts_tpu_torch.ops.segment import random_segment
+
+LOG_2PI = math.log(2 * math.pi)
+
+
+def _log_prior(y, mu_x, n_feats: int):
+    """Frame-token Gaussian log-likelihood grid for MAS. y (B, F, Ty),
+    mu_x (B, Tx, F) → (B, Tx, Ty). reference: DEX-TTS/model/tts.py:100-106."""
+    y_sq = -0.5 * (y**2).sum(1)[:, None, :]
+    y_mu = torch.einsum("bxf,bft->bxt", mu_x, y)
+    mu_sq = -0.5 * (mu_x**2).sum(-1)[:, :, None]
+    return y_sq + y_mu + mu_sq - 0.5 * LOG_2PI * n_feats
 
 
 @dataclass(frozen=True)
@@ -33,8 +51,7 @@ class TTSConfig:
     """The fields of the JAX package's GeDEXTTS / DeXTTS facades, with the
     same defaults. ``use_style`` selects DeX. ``linattn_impl`` only chose
     a TPU lowering of the U-Net's linear attention: every value maps to
-    the one implementation here. ``enc_dropout`` and ``loss_type`` are
-    training knobs, kept so a config carries over unchanged."""
+    the one implementation here."""
 
     n_vocab: int
     n_feats: int = 80
@@ -101,6 +118,7 @@ class GeDEXTTS(nn.Module):
             n_heads=cfg.enc_heads,
             n_layers=cfg.enc_layers,
             kernel_size=cfg.enc_kernel,
+            p_dropout=cfg.enc_dropout,
             use_softmax=cfg.use_softmax,
             use_decay=cfg.use_decay,
             use_adaln=cfg.use_style,
@@ -123,8 +141,9 @@ class GeDEXTTS(nn.Module):
     def _spk_vec(self, spk):
         return self.spk_emb(spk) if self.cfg.n_spks > 1 else None
 
-    def _encode(self, x, x_lengths, spk=None, sty=None):
-        mu, logw, x_mask = self.encoder(x, x_lengths, sty=sty, spk=self._spk_vec(spk))
+    def _encode(self, x, x_lengths, spk=None, sty=None, train: bool = False):
+        mu, logw, x_mask = self.encoder(x, x_lengths, sty=sty, spk=self._spk_vec(spk),
+                                        train=train)
         return mu.transpose(1, 2), logw.transpose(1, 2), x_mask.transpose(1, 2)
 
     def encode(self, x, x_lengths, spk=None):
@@ -143,7 +162,7 @@ class GeDEXTTS(nn.Module):
     def _denoise_kwargs(self, spk=None, **_):
         return {"spk": self._spk_vec(spk)}
 
-    def _cond_from_inputs(self, **_):
+    def _cond_from_inputs(self, train: bool = False, **_):
         return {}
 
     @torch.no_grad()
@@ -156,6 +175,7 @@ class GeDEXTTS(nn.Module):
         ``latents_noise`` (B, F, y_max_length) replaces the initial noise
         drawn from ``generator``. reference: GeDEX-TTS/model/tts.py:27-56."""
         cond = self._cond_from_inputs(**cond_inputs)
+        cond.pop("vq_loss", None)
         mu_x, logw, x_mask = self._encode(
             x, x_lengths, spk=spk, sty=cond.pop("sty_enc", None)
         )
@@ -184,6 +204,61 @@ class GeDEXTTS(nn.Module):
         dec_out = ablation_sampler(denoise_fn, latents, sampler, generator=generator)
         return mu_y * mask3, dec_out * mask3, attn, y_lengths
 
+    def compute_loss(self, x, x_lengths, y, y_lengths, out_size: int | None = None,
+                     spk=None, mask_ratio: float = 0.0, train: bool = True,
+                     generator=None, draws=None, **cond_inputs):
+        """Training losses {vq_loss (DeX), dur_loss, diff_loss, prior_loss},
+        and under ``MAS_ERRORS`` the MAS guard's count of broken paths: a
+        device scalar, not a loss, that `train.trainer` leaves out of the
+        sum and `metrics_to_host` raises on. y (B, F, Ty) padded mel.
+        Dropout, the segment offsets, σ and the noise draw from
+        ``generator`` (on the tensors' device) unless
+        ``draws`` = {"u": (B,), "sigma": (B, 1, 1), "noise": (B, F, W)}
+        hands them over (the dropout still draws from ``generator`` in
+        train mode). MAS sees the log-prior detached and its path is
+        constant, as in the JAX package. reference: GeDEX-TTS/model/tts.py:58-122."""
+        draws = draws or {}
+        with dropout_generator(generator) if train else contextlib.nullcontext():
+            cond = self._cond_from_inputs(train=train, **cond_inputs)
+            losses = {}
+            if "vq_loss" in cond:
+                losses["vq_loss"] = cond.pop("vq_loss")
+            mu_x, logw, x_mask = self._encode(
+                x, x_lengths, spk=spk, sty=cond.pop("sty_enc", None), train=train
+            )
+            y_max_length = y.shape[-1]
+            y_mask = sequence_mask(y_lengths, y_max_length).to(mu_x.dtype)
+            attn_mask = x_mask[:, :, 0][:, :, None] * y_mask[:, None, :]
+            with torch.no_grad():
+                attn, mas_errors = maximum_path(_log_prior(y, mu_x, self.cfg.n_feats), attn_mask,
+                                                return_errors=True)
+
+            logw_ = torch.log(1e-8 + attn.sum(-1))[:, :, None] * x_mask
+            losses["dur_loss"] = duration_loss(logw, logw_, x_lengths)
+
+            mask3 = y_mask[:, None, :]
+            if out_size is not None and out_size < y_max_length:
+                y, attn, _, mask3 = random_segment(y, attn, y_lengths, out_size,
+                                                   generator=generator, u=draws.get("u"))
+            mu_y = torch.einsum("bxt,bxf->bft", attn, mu_x)
+
+            denoise_kwargs = self._denoise_kwargs(spk=spk, **cond)
+            denoiser = self.decoder.denoise_fn
+
+            def denoise_fn(z, t):
+                return denoiser(z, mask3, mu_y, t, train=train, mask_ratio=mask_ratio,
+                                **denoise_kwargs)
+
+            edm_draws = (draws["sigma"], draws["noise"]) if "sigma" in draws else None
+            losses["diff_loss"] = edm_loss(
+                denoise_fn, y, mask3, mu_y, n_feats=self.cfg.n_feats,
+                loss_type=self.cfg.loss_type, generator=generator, draws=edm_draws,
+            )
+            prior = (0.5 * ((y - mu_y) ** 2 + LOG_2PI) * mask3).sum()
+            losses["prior_loss"] = prior / (mask3.sum() * self.cfg.n_feats)
+        losses[MAS_ERRORS] = mas_errors
+        return losses
+
 
 class DeXTTS(GeDEXTTS):
     """Expressive DEX-TTS: style from a reference utterance through the
@@ -197,6 +272,7 @@ class DeXTTS(GeDEXTTS):
         self.tv_encoder = TVEncoder(
             c_in=cfg.n_feats, c_h=cfg.tv_c_h, c_out=cfg.tv_c_out,
             c_out_g=cfg.tv_c_out_g, num_layer=cfg.tv_layers, n_emb=cfg.tv_n_emb,
+            commit_w=cfg.tv_commit_w,
         )
         self.lf0_encoder = LF0Encoder(
             c_h=cfg.lf0_c_h, c_out=cfg.lf0_c_out, c_out_g=cfg.lf0_c_out_g,
@@ -208,14 +284,16 @@ class DeXTTS(GeDEXTTS):
         )
         self.conv_sty = nn.Conv1d(cfg.tv_c_out_g, cfg.dec_dim * cfg.dec_dim_mults[-1], 1)
 
-    def _cond_from_inputs(self, ref, ref_lengths, sty, sty_lengths, lf0, lf0_lengths):
-        """Run the three style encoders. reference: DEX-TTS/model/tts.py:38-51."""
+    def _cond_from_inputs(self, ref, ref_lengths, sty, sty_lengths, lf0, lf0_lengths,
+                          train: bool = False):
+        """Run the three style encoders (train mode: dropout, batch
+        statistics, the codebook's EMA update). reference: DEX-TTS/model/tts.py:38-51."""
         ref_mask = sequence_mask(ref_lengths, ref.shape[2])[:, None, :].to(ref.dtype)
         sty_mask = sequence_mask(sty_lengths, sty.shape[2])[:, None, :].to(sty.dtype)
         lf0_mask = sequence_mask(lf0_lengths, lf0.shape[1])[:, None, :].to(lf0.dtype)
 
-        lf0_enc, lf0_dec = self.lf0_encoder(lf0, lf0_mask)
-        sty_enc_seq, sty_dec = self.tv_encoder(sty, sty_mask)
+        lf0_enc, lf0_dec = self.lf0_encoder(lf0, lf0_mask, train)
+        sty_enc_seq, sty_dec, vq_loss = self.tv_encoder(sty, sty_mask, train)
         # global style vector: masked time-means of TV pre-VQ + lf0 features
         sty_enc = sty_enc_seq.sum(-1) / sty_mask.sum(-1)
         sty_enc = sty_enc + lf0_enc.sum(-1) / lf0_mask.sum(-1)
@@ -223,12 +301,13 @@ class DeXTTS(GeDEXTTS):
         lf0_global = lf0_dec.sum(-1) / lf0_mask.sum(-1)
         sty_dec = self.conv_sty(sty_dec + lf0_global[:, :, None])
 
-        _, ref_skips = self.tiv_encoder(ref, ref_mask)
+        _, ref_skips = self.tiv_encoder(ref, ref_mask, train)
         return {
             "sty_enc": sty_enc,
             "sty_dec": sty_dec.transpose(1, 2),  # (B, Ts, C_mid)
             "sty_lengths": sty_lengths,
             "ref_stats": stack_skip_stats(ref_skips),
+            "vq_loss": vq_loss,
         }
 
     def _denoise_kwargs(self, spk=None, **cond):

@@ -201,10 +201,13 @@ class DiffusionDenoiser(nn.Module):
         self.final_block = Block(dim, dim, groups)
         self.final_conv = nn.Conv2d(dim, 1, 1)
 
-    def forward(self, x, mask, mu, t, ref=None, sty=None, sty_lengths=None, spk=None):
+    def forward(self, x, mask, mu, t, ref=None, sty=None, sty_lengths=None, spk=None,
+                train: bool = False, mask_ratio: float = 0.0):
         """x, mu: (B, n_feats, W); mask: (B, 1, W); t: (B,) noise labels;
         ref (DEX): (means, stds) each (B, L, C_mid); sty (DEX): (B, Ts,
-        C_mid); spk (GeDEX): (B, spk_emb_dim). Returns (B, n_feats, W) f32."""
+        C_mid); spk (GeDEX): (B, spk_emb_dim). ``train`` and ``mask_ratio``
+        reach the DiT (attention-mode threshold, token masking). Returns
+        (B, n_feats, W) f32."""
         dt = self.compute_dtype
         channels = [mu, x]
         if not self.use_style and self.n_spks > 1:
@@ -235,7 +238,7 @@ class DiffusionDenoiser(nn.Module):
             sty_mask = sequence_mask(sty_lengths, sty.shape[1]).float()
             h = self.tv_adaptor(h, mask_mid, sty, sty_mask, t_sty[:, None, :])
             h = self.tiv_adaptor(h, ref, t_adap[:, None, :])
-        h = self.vit(h, mask_mid, t).to(dt)
+        h = self.vit(h, mask_mid, t, train=train, mask_ratio=mask_ratio).to(dt)
 
         for (res1, res2, attn, up), m in zip(self.ups, reversed(masks[1:])):
             h = torch.cat([h, hiddens.pop()], dim=1)

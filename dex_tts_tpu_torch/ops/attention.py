@@ -1,8 +1,14 @@
-"""Exact non-causal attention for the DiT: the Hopper kernel
-(`csrc/flash_attention.cu`) and its plain PyTorch version.
+"""Exact non-causal attention for the DiT: the Hopper kernels
+(`csrc/flash_attention.cu`: the forward, the backward's dK/dV and dQ) and
+their plain PyTorch versions.
 
 Replaces the TPU kernels reached from dex_tts_tpu/models/dit.py
-MHSA._flash (library Pallas flash attention) and MHSA._splash.
+MHSA._flash (library Pallas flash attention, forward and, in a train
+step, its _flash_attention_bwd_dkv and _flash_attention_bwd_dq) and
+MHSA._splash. `flash_attention_qkv` is what the DiT calls: with grad
+enabled on CUDA it is a `torch.autograd.Function` whose forward saves the
+f32 log-sum-exp and whose backward launches the two backward kernels; on
+the CPU autograd runs through the plain forward.
 """
 
 from __future__ import annotations
@@ -24,6 +30,41 @@ def attention_reference(q, k, v, scale: float, dtype=None):
     scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
     weights = scores.softmax(dim=-1).to(dtype)
     return torch.einsum("bhts,bshd->bthd", weights.float(), v.float()).to(dtype)
+
+
+def attention_reference_lse(q, k, v, scale: float):
+    """The plain forward with its log-sum-exp: (o in q's dtype, lse (B, H,
+    T) f32, natural log of Σ_s exp(q·k_s·scale))."""
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+    lse = torch.logsumexp(scores, dim=-1)
+    weights = torch.exp(scores - lse[..., None]).to(q.dtype)
+    out = torch.einsum("bhts,bshd->bthd", weights.float(), v.float()).to(q.dtype)
+    return out, lse
+
+
+def attention_bwd_reference(q, k, v, o, lse, do, scale: float):
+    """Plain backward of `attention_reference` from the saved f32
+    log-sum-exp (B, H, T), as the library kernels compute it: P recomputed
+    as exp(S·scale − lse), D = rowsum(dO∘O) and dS = P∘(dP − D) in f32; P
+    rounded to the input dtype for dV = Pᵀ·dO, dS rounded to it for dK =
+    scale·dSᵀ·Q and dQ = scale·dS·K, the scale applied to the f32 sums.
+    q, k, v, o, do (B, T, H, hd) → (dq, dk, dv) in q's dtype."""
+    dt = q.dtype
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    p = torch.exp(torch.einsum("bthd,bshd->bhts", qf, kf) * scale - lse[..., None])
+    dv = torch.einsum("bhts,bthd->bshd", p.to(dt).float(), dof)
+    dp = torch.einsum("bthd,bshd->bhts", dof, vf)
+    delta = attention_delta(o, do)
+    ds = (p * (dp - delta[..., None])).to(dt).float()
+    dk = torch.einsum("bhts,bthd->bshd", ds, qf) * scale
+    dq = torch.einsum("bhts,bshd->bthd", ds, kf) * scale
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def attention_delta(o, do):
+    """D = rowsum(dO∘O) in f32, (B, T, H, hd) → (B, H, T): a plain
+    reduction, as the library computes it in XLA outside its kernels."""
+    return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
 
 
 def _check(q, k, v):
@@ -50,40 +91,156 @@ def _check(q, k, v):
 def _kernel():
     from dex_tts_tpu_torch.ops.kernels import load_library
 
-    fn = load_library("flash_attention.cu").flash_attention_fwd
-    fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    lib = load_library("flash_attention.cu")
+    fwd = lib.flash_attention_fwd
+    fwd.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
         + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_void_p]
     )
-    fn.restype = ctypes.c_int
-    return fn
+    dkv = lib.flash_attention_bwd_dkv
+    dkv.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    )
+    dq = lib.flash_attention_bwd_dq
+    dq.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    )
+    for fn in (fwd, dkv, dq):
+        fn.restype = ctypes.c_int
+    return fwd, dkv, dq
 
 
-def flash_attention(q, k, v, scale: float):
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flash_attention(q, k, v, scale: float, with_lse: bool = False):
     """softmax(q·kᵀ·scale)·v per (batch, head); q, k, v (B, T, H, 128),
     bf16 or f32, last dimension contiguous (other strides free). Returns a
-    contiguous (B, T, H, 128) tensor of q's dtype.
+    contiguous (B, T, H, 128) tensor of q's dtype, and with ``with_lse``
+    also the f32 (B, H, T) log-sum-exp.
 
     CPU tensors take the plain version (any head_dim); CUDA tensors launch
     the kernel (on the current stream, no synchronisation) or raise."""
     if q.device.type == "cpu":
+        if with_lse:
+            out, lse = attention_reference_lse(q, k, v, scale)
+            return out.contiguous(), lse
         return attention_reference(q, k, v, scale, q.dtype).contiguous()
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
     _check(q, k, v)
     b, t, h, hd = q.shape
     out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):  # the C launcher uses the current device
-        err = _kernel()(
+        err = _kernel()[0](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[q.dtype], b, t, h, hd,
+            0 if lse is None else lse.data_ptr(), _DTYPE_CODE[q.dtype], b, t, h, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+            float(scale), _stream(q),
         )
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_attention.launches = 0
+
+
+def _bwd_strides(q, k, v, do, dq, dk, dv):
+    strides = [s for a in (q, k, v, do, dq, dk, dv) for s in a.stride()[:3]]
+    return (ctypes.c_longlong * 21)(*strides)
+
+
+def _check_bwd(q, k, v, do, lse, delta, outs):
+    _check(q, k, v)
+    _check(do, outs[0], outs[-1])
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"do must be q's shape and dtype, got {do.shape} {do.dtype}")
+    b, t, h, _ = q.shape
+    for name, a in (("lse", lse), ("delta", delta)):
+        if a.dtype != torch.float32 or a.shape != (b, h, t) or not a.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous f32 (B, H, T) tensor")
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale: float):
+    """The backward's dK/dV kernel: writes dk = scale·dSᵀ·Q and dv = Pᵀ·dO
+    into ``dk``, ``dv`` (B, T, H, 128 views, q's dtype). lse and delta f32
+    (B, H, T). CUDA tensors only: the plain version is
+    `attention_bwd_reference`."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_dkv is a CUDA kernel, got {q.device}")
+    _check_bwd(q, k, v, do, lse, delta, (dk, dv))
+    b, t, h, hd = q.shape
+    with torch.cuda.device(q.device):
+        err = _kernel()[1](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, t, h,
+            hd, _bwd_strides(q, k, v, do, dk, dk, dv), float(scale), _stream(q),
+        )
+    if err:
+        raise RuntimeError(f"flash_attention_bwd_dkv launch failed: CUDA error {err}")
+    flash_attention_bwd_dkv.launches += 1
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, dq, scale: float):
+    """The backward's dQ kernel: writes dq = scale·dS·K into ``dq`` (a
+    (B, T, H, 128) view, q's dtype). CUDA tensors only."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_dq is a CUDA kernel, got {q.device}")
+    _check_bwd(q, k, v, do, lse, delta, (dq,))
+    b, t, h, hd = q.shape
+    with torch.cuda.device(q.device):
+        err = _kernel()[2](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), _DTYPE_CODE[q.dtype], b, t, h, hd,
+            _bwd_strides(q, k, v, do, dq, dq, dq), float(scale), _stream(q),
+        )
+    if err:
+        raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA error {err}")
+    flash_attention_bwd_dq.launches += 1
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+class FlashAttentionQKV(torch.autograd.Function):
+    """Differentiable K1 on the DiT's one (B, T, 3, H, hd) projection: the
+    forward kernel with its log-sum-exp, saving qkv, o and the f32 lse; the
+    backward launches the dK/dV and dQ kernels, which write into one
+    (B, T, 3, H, hd) gradient buffer."""
+
+    @staticmethod
+    def forward(ctx, qkv, scale):
+        out, lse = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], scale, with_lse=True)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, out, lse = ctx.saved_tensors
+        do = do.to(qkv.dtype).contiguous()
+        delta = attention_delta(out, do)
+        dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        flash_attention_bwd_dkv(q, k, v, do, lse, delta, dqkv[:, :, 1], dqkv[:, :, 2], ctx.scale)
+        flash_attention_bwd_dq(q, k, v, do, lse, delta, dqkv[:, :, 0], ctx.scale)
+        return dqkv, None
+
+
+def flash_attention_qkv(qkv, scale: float):
+    """Attention over the DiT's (B, T, 3, H, hd) projection → (B, T, H, hd)
+    in qkv's dtype. CPU: the plain version, differentiated by autograd.
+    CUDA: the kernel; through `FlashAttentionQKV` when grad is enabled."""
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    if qkv.device.type == "cuda" and torch.is_grad_enabled() and qkv.requires_grad:
+        return FlashAttentionQKV.apply(qkv, scale)
+    return flash_attention(q, k, v, scale)

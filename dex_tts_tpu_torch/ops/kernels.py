@@ -3,8 +3,10 @@
 Each source is compiled by ``nvcc`` for Hopper (sm_90a) into a shared
 library with a plain C interface, loaded with ctypes. Libraries go to
 ``build/kernels/`` at the repository root, named by a hash of the source,
-so a changed source rebuilds and an unchanged one is reused. Nothing is
-built at import time: the first launch builds.
+so a changed source rebuilds and an unchanged one is reused; nvcc's
+report (ptxas's registers, spills and shared memory per kernel) is kept
+beside the library. Nothing is built at import time: the first launch
+builds.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,9 +26,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("flash_attention.cu", "snake.cu")
+SOURCES = ("flash_attention.cu", "snake.cu", "mas.cu")
 
 
 def _nvcc() -> str:
@@ -70,10 +73,26 @@ def build_all(sources=SOURCES) -> dict[str, Path]:
             tmp.unlink(missing_ok=True)
             errors.append(f"nvcc failed for {source}:\n{stderr}")
         else:
+            outs[source].with_suffix(".log").write_text(stderr)
             os.replace(tmp, outs[source])  # atomic: a concurrent build never sees half a file
     if errors:
         raise RuntimeError("\n".join(errors))
     return outs
+
+
+def resource_usage(source: str) -> list[str]:
+    """ptxas's report of each kernel in the built ``csrc/<source>``, one
+    line per kernel: "<mangled name>: <stack and spills>; <registers,
+    barriers, constant memory>" (empty if the build left no report)."""
+    log = _library_path(source).with_suffix(".log")
+    usage, name = {}, None
+    for line in (log.read_text().splitlines() if log.exists() else []):
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name = m.group(1)
+            usage[name] = []
+        elif name and ("spill" in line or "Used" in line):
+            usage[name].append(line.split(" : ", 1)[-1].strip())
+    return [f"{n}: {'; '.join(v)}" for n, v in usage.items()]
 
 
 def build(source: str) -> Path:

@@ -33,3 +33,9 @@ def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     upper = (pos[None, None, :] < cum[:, :, None]).to(mask.dtype)
     lower = F.pad(upper, (0, 0, 1, 0))[:, :-1]
     return (upper - lower) * mask
+
+
+def duration_loss(logw, logw_, lengths):
+    """MSE between predicted and MAS log-durations, normalised by
+    Σlengths. reference: DEX-TTS/model/utils.py:42-44."""
+    return ((logw - logw_) ** 2).sum() / lengths.sum()

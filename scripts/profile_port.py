@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time goes on the port's main path, on one NVIDIA card.
+"""Where the time goes on the port's main paths, on one NVIDIA card.
 
-    python3 scripts/profile_port.py
+    python3 scripts/profile_port.py            # synthesis
+    python3 scripts/profile_port.py --train    # training
 
 Builds both of chip_smoke's main paths with chip_smoke.build_main_path
 (the benchmark DeX at VCTK width, bf16, attention "auto", random weights,
@@ -16,11 +17,18 @@ to 4), warms up once, then
   2. traces one more call with torch.profiler and prints device time by
      kernel (top 25), grouped into families, kernel launches, and the
      device's idle share of the call's wall time.
+With ``--train`` it profiles the training main path instead
+(chip_smoke.build_train_path: the ESD preset at full width on
+bench_train's batch, PyTorch's TF32 defaults), for attention "auto" and
+"flash_bf16": after two warm-up steps, two steps timed with the host clock
+and two traced.
 Prints one JSON line last. Needs a card.
 """
 
+import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -32,6 +40,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 FAMILIES = (  # first match wins, by substring of the kernel name
     ("flash_attention (csrc)", ("flash_fwd",)),
+    ("flash_attention backward (csrc)", ("flash_bwd",)),
+    ("mas (csrc)", ("mas_kernel",)),
     ("snake (csrc)", ("snake_fwd",)),
     ("convolution", ("conv", "implicit_gemm", "xmma_fprop", "dgrad", "wgrad", "winograd", "fft")),
     ("matmul", ("gemm", "cutlass", "sm90_xmma", "ampere", "cublas", "gemv", "splitk")),
@@ -93,10 +103,24 @@ def profile_request(preset, synth, texts, refs) -> dict:
         print(f"stage {k}: {v * 1e3:.1f} ms")
 
     # 2. one traced call
+    traced = trace(call)
+    return {
+        "batch": b, "padded_batch": inputs["x"].shape[0], "frames": y_len,
+        "steps": preset.n_timesteps, "audio_s": audio_s,
+        "rtf_untraced": sum(stages.values()) / audio_s,
+        "stages_ms": {k: v * 1e3 for k, v in stages.items()},
+        **traced,
+    }
+
+
+def trace(fn) -> dict:
+    """Run ``fn`` (then synchronise) under torch.profiler; print and return
+    the wall time, device busy time, idle share, launches and device time
+    by kernel family."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        call()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -104,7 +128,10 @@ def profile_request(preset, synth, texts, refs) -> dict:
         dev = getattr(e, "self_device_time_total", None)
         if dev is None:
             dev = getattr(e, "self_cuda_time_total", 0)
-        if dev > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+        # a profiler annotation such as "Optimizer.step#Adam.step" is a
+        # range over kernels already counted, not a kernel
+        annotation = re.fullmatch(r"[\w.]+#[\w.]+", e.key) is not None
+        if dev > 0 and e.device_type == torch.autograd.DeviceType.CUDA and not annotation:
             rows.append((e.key, dev / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
@@ -118,27 +145,56 @@ def profile_request(preset, synth, texts, refs) -> dict:
         print(f"family {fam}: {ms:.1f} ms ({ms / busy_ms:.3f} of device time)")
     for name, ms, n in rows[:25]:
         print(f"kernel {ms:9.2f} ms  x{n:<6d} {name[:110]}")
-    return {
-        "batch": b, "padded_batch": inputs["x"].shape[0], "frames": y_len,
-        "steps": preset.n_timesteps, "audio_s": audio_s,
-        "rtf_untraced": sum(stages.values()) / audio_s,
-        "stages_ms": {k: v * 1e3 for k, v in stages.items()},
-        "traced_wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
-        "idle_share": 1 - busy_ms / (wall * 1e3), "kernel_launches": launches,
-        "families_ms": fams,
-    }
+    return {"traced_wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / (wall * 1e3), "kernel_launches": launches,
+            "families_ms": fams}
+
+
+def profile_train(card: str, attention: str, steps: int = 2) -> dict:
+    """Host-clock time of ``steps`` train steps and one trace of ``steps``
+    more, after two warm-up steps."""
+    import chip_smoke
+    from dex_tts_tpu_torch.train.trainer import metrics_to_host
+
+    cfg, mode, state, step, batch = chip_smoke.build_train_path(attention)
+    print(f"== esd train step, attention {attention} → {mode} [{card}]")
+    for _ in range(2):
+        metrics_to_host(step(state, batch))
+
+    def run():
+        for _ in range(steps):
+            metrics = step(state, batch)
+        return metrics_to_host(metrics)
+
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    print(f"{steps} steps untraced: {wall * 1e3:.1f} ms, {steps / wall:.4f} steps/s")
+    report = {"mode": mode, "steps": steps, "untraced_ms": wall * 1e3,
+              "steps_per_s": steps / wall, **trace(run)}
+    del state
+    torch.cuda.empty_cache()
+    return report
 
 
 def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("--train", action="store_true", help="profile the training main path")
+    args = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_port: CUDA is not available")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     import chip_smoke
 
     card = chip_smoke.card_line()
     report = {"card": card, "paths": {}}
+    if args.train:
+        report["paths"]["esd train"] = {a: profile_train(card, a) for a in ("auto", "flash_bf16")}
+        report["nvidia_smi"] = nvidia_smi()
+        print(json.dumps(report))
+        return
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     with tempfile.TemporaryDirectory() as tmp:
         wavs = chip_smoke.write_reference_wavs(tmp, 16)
         for preset_name, refs_1, refs_2 in (
@@ -154,10 +210,14 @@ def main():
                 requests[label] = profile_request(preset, synth, texts, refs)
             del synth
             torch.cuda.empty_cache()
-    report["nvidia_smi"] = subprocess.run(
+    report["nvidia_smi"] = nvidia_smi()
+    print(json.dumps(report))
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
-    print(json.dumps(report))
 
 
 if __name__ == "__main__":

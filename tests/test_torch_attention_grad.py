@@ -1,0 +1,117 @@
+"""The attention backward: the plain version beside the K1 backward kernels
+(`attention_bwd_reference`, from the saved f32 log-sum-exp) against
+autograd of the plain forward and against `jax.vjp` of the JAX package's
+einsum attention (dex_tts_tpu/models/dit.py:356-362), the branch its
+flash route falls back to off the TPU. The kernels themselves run on the
+card only (`chip_smoke.py`); here their wrappers must refuse CPU tensors."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from dex_tts_tpu_torch.ops import attention as att  # noqa: E402
+from tests.torch_port_util import t  # noqa: E402
+
+SHAPES = [(2, 1, 2, 16), (2, 7, 2, 16), (3, 33, 2, 16), (1, 65, 1, 32)]
+
+
+def _inputs(shape, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((shape[0], shape[1], 3) + shape[2:]).astype(np.float32)
+    do = rng.standard_normal(shape).astype(np.float32)
+    return qkv, do
+
+
+def jax_einsum_attention(q, k, v, dt):
+    """dex_tts_tpu/models/dit.py:356-362."""
+    hd = q.shape[-1]
+    scores = jnp.einsum("bthd,bshd->bhts", q, k, preferred_element_type=jnp.float32) * (hd**-0.5)
+    weights = jax.nn.softmax(scores, axis=-1).astype(dt)
+    return jnp.einsum("bhts,bshd->bthd", weights, v, preferred_element_type=jnp.float32).astype(dt)
+
+
+def _plain_bwd(qkv, do, dtype):
+    q, k, v = (t(qkv[:, :, i]).to(dtype) for i in range(3))
+    scale = q.shape[-1] ** -0.5
+    out, lse = att.flash_attention(q, k, v, scale, with_lse=True)  # CPU: the plain forward
+    return out, att.attention_bwd_reference(q, k, v, out, lse, t(do).to(dtype), scale)
+
+
+def _bound(want, rel):
+    """rel × max|g| per tensor, floored at rel × max|dv| / 10: at T = 1 dq
+    and dk are 0 in exact arithmetic, and what is left is the rounding of
+    D − dP, terms of dv's size."""
+    floor = 0.1 * np.abs(want[2]).max()
+    return [rel * max(np.abs(w).max(), floor) for w in want]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_backward_matches_autograd(shape):
+    qkv, do = _inputs(shape, seed=shape[1])
+    _, got = _plain_bwd(qkv, do, torch.float32)
+    leaf = t(qkv).requires_grad_(True)
+    scale = shape[-1] ** -0.5
+    att.attention_reference(leaf[:, :, 0], leaf[:, :, 1], leaf[:, :, 2], scale).backward(t(do))
+    want = [leaf.grad[:, :, i].numpy() for i in range(3)]
+    for g, w, b in zip(got, want, _bound(want, 1e-5)):
+        np.testing.assert_allclose(g.numpy(), w, atol=b, rtol=0)
+
+
+# f32: sums in another order only; bf16: P, dS and the outputs rounded to
+# bf16 on both sides, at different points (the JAX einsum backward rounds
+# dP, not dS, and forms D from P·dP rather than dO·O): 2e-2 × max|g|, the
+# bound the card's kernels are held to
+@pytest.mark.parametrize("dtype,rel", [("float32", 1e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_backward_matches_jax_vjp(shape, dtype, rel):
+    qkv, do = _inputs(shape, seed=100 + shape[1])
+    jdt = jnp.dtype(dtype)
+    jq, jk, jv = (jnp.asarray(qkv[:, :, i]).astype(jdt) for i in range(3))
+    out_j, vjp = jax.vjp(lambda q, k, v: jax_einsum_attention(q, k, v, jdt), jq, jk, jv)
+    want = [np.asarray(g, np.float32) for g in vjp(jnp.asarray(do).astype(jdt))]
+    out, got = _plain_bwd(qkv, do, getattr(torch, dtype))
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(out_j, np.float32),
+                               atol=rel * np.abs(np.asarray(out_j, np.float32)).max())
+    for g, w, b in zip(got, want, _bound(want, rel)):
+        assert g.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(g.float().numpy(), w, atol=b, rtol=0)
+
+
+def test_lse_and_delta():
+    qkv, do = _inputs((2, 9, 2, 16), seed=3)
+    q, k, v = (t(qkv[:, :, i]) for i in range(3))
+    out, lse = att.flash_attention(q, k, v, 0.25, with_lse=True)
+    scores = torch.einsum("bthd,bshd->bhts", q, k) * 0.25
+    torch.testing.assert_close(lse, torch.logsumexp(scores, -1))
+    assert lse.dtype == torch.float32 and lse.shape == (2, 2, 9)
+    delta = att.attention_delta(out, t(do))
+    torch.testing.assert_close(delta, (out * t(do)).sum(-1).transpose(1, 2))
+
+
+def test_qkv_entry_differentiates_on_cpu():
+    """The DiT's entry: on the CPU autograd runs through the plain forward
+    and gives the same gradient as the plain backward."""
+    qkv, do = _inputs((2, 11, 2, 16), seed=4)
+    leaf = t(qkv).requires_grad_(True)
+    out = att.flash_attention_qkv(leaf, 0.25)
+    out.backward(t(do))
+    q, k, v = (t(qkv[:, :, i]) for i in range(3))
+    o, lse = att.flash_attention(q, k, v, 0.25, with_lse=True)
+    want = att.attention_bwd_reference(q, k, v, o, lse, t(do), 0.25)
+    for i in range(3):
+        torch.testing.assert_close(leaf.grad[:, :, i], want[i], atol=1e-5, rtol=1e-5)
+
+
+def test_backward_kernels_refuse_cpu_tensors():
+    qkv, do = _inputs((1, 4, 1, 128), seed=5)
+    q, k, v = (t(qkv[:, :, i]) for i in range(3))
+    out, lse = att.flash_attention(q, k, v, 0.1, with_lse=True)
+    delta = att.attention_delta(out, t(do))
+    grads = torch.empty_like(t(qkv))
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        att.flash_attention_bwd_dkv(q, k, v, t(do), lse, delta, grads[:, :, 1], grads[:, :, 2], 0.1)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        att.flash_attention_bwd_dq(q, k, v, t(do), lse, delta, grads[:, :, 0], 0.1)

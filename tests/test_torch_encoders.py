@@ -78,10 +78,10 @@ def test_tv_encoder_with_vq(pair):
     style = style_inputs(np.random.default_rng(2), 2, 19, lengths=[19, 12])
     jm, pm = _masks(style["sty_lengths"], 19)
     sty_t = style["sty"].transpose(0, 2, 1)
-    z, dec, _ = _apply(model, variables, lambda m, s, k: m.tv_encoder(s, k),
-                       jnp.asarray(sty_t), jnp.asarray(jm))
+    z, dec, vq_loss = _apply(model, variables, lambda m, s, k: m.tv_encoder(s, k),
+                             jnp.asarray(sty_t), jnp.asarray(jm))
     with torch.no_grad():
-        p_z, p_dec = port.tv_encoder(t(style["sty"]), t(pm))
+        p_z, p_dec, p_vq_loss = port.tv_encoder(t(style["sty"]), t(pm))
         codes = port.tv_encoder.vq.embedding
         flat = p_z.transpose(1, 2).reshape(-1, codes.shape[1])
         dist = torch.cdist(flat, codes).sort(dim=-1).values
@@ -90,6 +90,7 @@ def test_tv_encoder_with_vq(pair):
     assert (dist[:, 1] - dist[:, 0]).min() > 1e-3
     np.testing.assert_allclose(p_z.numpy().transpose(0, 2, 1), np.asarray(z), atol=ATOL)
     np.testing.assert_allclose(p_dec.numpy().transpose(0, 2, 1), np.asarray(dec), atol=ATOL)
+    np.testing.assert_allclose(p_vq_loss.item(), float(vq_loss), rtol=1e-5)
 
 
 def test_tiv_encoder_and_skip_stats(pair):

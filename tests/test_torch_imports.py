@@ -38,6 +38,9 @@ def test_every_module_imports_without_jax():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
     assert len(_modules()) > 15
+    assert {"dex_tts_tpu_torch.main", "dex_tts_tpu_torch.ops.mas", "dex_tts_tpu_torch.ops.segment",
+            "dex_tts_tpu_torch.train.trainer", "dex_tts_tpu_torch.train.checkpoint",
+            "dex_tts_tpu_torch.data.dataset"} <= set(_modules())
 
 
 def test_source_names_no_jax_or_jax_package():
@@ -56,14 +59,15 @@ def test_source_names_no_jax_or_jax_package():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
-    from dex_tts_tpu_torch.config import build_model, build_vocoder
+    from dex_tts_tpu_torch import main as port_main
+    from dex_tts_tpu_torch.config import build_model, build_vocoder, load_preset
     from dex_tts_tpu_torch.models.vocoder import BigVGANConfig, HiFiGANConfig
     from dex_tts_tpu_torch.ops.kernels import load_library
     from dex_tts_tpu_torch.pipeline import Synthesizer
     from tests.torch_port_util import BIGVGAN_TINY, tiny_cfg
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for source in ("flash_attention.cu", "snake.cu"):
+    for source in ("flash_attention.cu", "snake.cu", "mas.cu"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             load_library(source)
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
@@ -78,3 +82,5 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Synthesizer(model)
     assert Synthesizer(model, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_main.train(load_preset("esd"), "unused")  # the train entry point

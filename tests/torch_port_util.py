@@ -27,11 +27,17 @@ from dex_tts_tpu_torch.convert import (
     dex_tts_flax_to_torch,
     load_numpy_state,
 )
+from dex_tts_tpu_torch.ops import mas
 from dex_tts_tpu_torch.models.dit import DiTConfig
 from dex_tts_tpu_torch.models.tts import TTSConfig, build_tts
 from dex_tts_tpu_torch.models.vocoder import BigVGANConfig, BigVGANGenerator
 
 N_FEATS = 12
+
+# the test run puts several worker processes on one machine: torch's
+# default of one thread per core in each of them oversubscribes the CPU,
+# and the tiny models' many small ops then wait on each other's threads
+torch.set_num_threads(min(torch.get_num_threads(), 2))
 
 
 def tiny_cfg(**overrides) -> TTSConfig:
@@ -143,3 +149,97 @@ def t(x, dtype=None):
     """numpy → torch (CPU)."""
     out = torch.from_numpy(np.ascontiguousarray(x))
     return out if dtype is None else out.to(dtype)
+
+
+def port_inputs(inputs: dict) -> dict:
+    """numpy batch → CPU tensors (integer arrays as int64)."""
+    return {k: t(v, torch.long) if v.dtype.kind == "i" else t(v) for k, v in inputs.items()}
+
+
+def planted_batch(port, cfg: TTSConfig, b=2, tx=9, ty=32, out_size=16, spk=None, seed=0):
+    """A compute_loss batch (numpy) whose mel follows the port encoder's
+    mu_x along evenly spread durations plus small noise, so MAS is decisive
+    (a near-tie could flip one step of the path between two orders of f32
+    additions), and JAX's draws for key 5 as its compute_loss splits them
+    (tts.py:261, edm.py:107-113). → (inputs, draws, key, planted path)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(1, 30, (b, tx)).astype(np.int32)
+    x_lengths = np.asarray([tx] + [tx - 3] * (b - 1), np.int32)
+    y_lengths = np.asarray([ty] + [ty - 11] * (b - 1), np.int32)
+    for i in range(b):
+        x[i, x_lengths[i]:] = 0
+    extra = style_inputs(rng, b, 19, lengths=[19] + [12] * (b - 1)) if cfg.use_style else {}
+    if spk is not None:
+        extra["spk"] = np.asarray(spk, np.int32)
+    with torch.no_grad():
+        cond = port._cond_from_inputs(**port_inputs({k: v for k, v in extra.items() if k != "spk"}))
+        mu_x, _, _ = port._encode(t(x, torch.long), t(x_lengths, torch.long),
+                                  spk=t(extra["spk"], torch.long) if spk is not None else None,
+                                  sty=cond.get("sty_enc"))
+    path = np.zeros((b, tx, ty), np.float32)
+    for i in range(b):
+        ends = np.round(np.linspace(0, y_lengths[i], x_lengths[i] + 1)).astype(int)
+        for j in range(x_lengths[i]):
+            path[i, j, ends[j]:ends[j + 1]] = 1.0
+    y = np.einsum("bxt,bxf->bft", path, mu_x.numpy()) + 0.05 * rng.standard_normal((b, cfg.n_feats, ty))
+    y *= np.arange(ty)[None, None] < y_lengths[:, None, None]
+    with torch.no_grad():  # the plain MAS recovers the planted path
+        log_prior = -0.5 * ((t(y.astype(np.float32))[:, None] - mu_x[..., None]) ** 2).sum(2)
+        assert torch.equal(mas.maximum_path(log_prior, t(path).amax(1, keepdim=True)
+                                            * (t(x) > 0).float()[:, :, None]), t(path))
+    key = jax.random.PRNGKey(5)
+    k_seg, k_diff = jax.random.split(key)
+    k_sigma, k_noise = jax.random.split(k_diff)
+    draws = {"u": np.asarray(jax.random.uniform(k_seg, (b,))),
+             "sigma": np.asarray(jax.random.normal(k_sigma, (b, 1, 1))),
+             "noise": np.asarray(jax.random.normal(k_noise, (b, cfg.n_feats, out_size)))}
+    inputs = dict(x=x, x_lengths=x_lengths, y=y.astype(np.float32), y_lengths=y_lengths, **extra)
+    return inputs, draws, key, path
+
+
+def loss_and_grads(model, variables, port, cfg, inputs, draws, key, out_size):
+    """JAX value_and_grad of compute_loss (train=False; one compile) and
+    the port's compute_loss + backward on the same inputs and draws →
+    (JAX losses as floats, JAX grads as port-named arrays, port losses
+    without the MAS guard's count);
+    the port's grads are left in ``port``'s parameters."""
+    others = jax.tree_util.tree_map(jnp.asarray, {k: v for k, v in variables.items()
+                                                   if k != "params"})
+
+    def loss_fn(params, inputs):
+        losses = model.apply({"params": params, **others}, key, out_size=out_size, train=False,
+                             method=type(model).compute_loss, **inputs)
+        return sum(losses.values()), losses
+
+    (_, want), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        variables["params"], {k: jnp.asarray(v) for k, v in inputs.items()})
+    want_grads = dex_tts_flax_to_torch(
+        jax.tree_util.tree_map(np.asarray, {"params": grads, **others}), cfg)
+    port.zero_grad(set_to_none=True)
+    got = port.compute_loss(**port_inputs(inputs), out_size=out_size, train=False,
+                            draws={k: t(v) for k, v in draws.items()})
+    assert got.pop(mas.MAS_ERRORS).item() == 0
+    sum(got.values()).backward()
+    return {k: float(v) for k, v in want.items()}, want_grads, got
+
+
+def assert_grads_match(port, want_grads, rel: float) -> int:
+    """Per parameter |g − g_jax| ≤ rel × (max|g_jax| + 1e-3 × the model's
+    largest gradient); the floor covers gradients that are 0 in exact
+    arithmetic (biases in front of a GroupNorm). → parameters checked."""
+    top = max(np.abs(v).max() for v in want_grads.values())
+    n = 0
+    for name, p in port.named_parameters():
+        got = p.grad.numpy() if p.grad is not None else np.zeros(p.shape, np.float32)
+        want = want_grads[name]
+        if "bias_hh" in name:
+            # the converter folds the GRU's r/z hidden biases into bias_ih
+            # (convert._gru): their gradients are bias_ih's, and 0 in the map
+            h = want.shape[0] // 3
+            ih = port.get_parameter(name.replace("bias_hh", "bias_ih")).grad.numpy()
+            np.testing.assert_allclose(got[:2 * h], ih[:2 * h], rtol=1e-6, atol=1e-9)
+            got, want = got[2 * h:], want[2 * h:]
+        bound = rel * (np.abs(want).max() + 1e-3 * top)
+        np.testing.assert_allclose(got, want, atol=bound, rtol=0, err_msg=name)
+        n += 1
+    return n
