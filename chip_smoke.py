@@ -35,9 +35,10 @@ Training (the third slice) adds:
   2b. monotonic alignment search (K4) against its plain version: exactly
      equal paths and sum(path) == t_y per item, at bench_train's batch,
      ESD's long buckets and ragged lengths; the flash-attention backward
-     kernels (dK/dV, dQ) and the forward's log-sum-exp against the plain
-     backward, bf16 and f32, at the train step's and the synthesis shape
-     and ragged T, timed against SDPA's forward + backward;
+     (bf16: one pass and the dQ convert; f32: dK/dV and dQ kernels) and
+     the forward's log-sum-exp against the plain backward, bf16 and f32,
+     at the train step's and the synthesis shape and ragged T, timed
+     against SDPA's forward alone, backward alone and forward + backward;
   3c. one train step (losses and every gradient) of a depth-cut DeX at
      full width, card against CPU, f32, attention "flash", with the same
      draws and a planted alignment; CPU controls with the MAS path
@@ -267,17 +268,18 @@ def phase_attention_backward():
     ragged T, and f32. The forward's o at its tolerance (bf16 2e-2 ×
     max|o|, f32 1e-4), the lse within 1e-3, then dq, dk, dv each within
     2e-2 (bf16) or 1e-4 (f32) × its max |grad|, floored at a tenth of
-    max |dv|; max_abs_err is the worst of o, dq, dk and dv. Then backward
-    and forward + backward times at the train shape against the plain
-    versions and SDPA. → per-type report."""
+    max |dv| (bf16's dQ sums its 128-key blocks with atomics, in an order
+    that changes from run to run, inside the same bound); max_abs_err is
+    the worst of o, dq, dk and dv. Then backward and forward + backward
+    times at the train shape against the plain versions and SDPA (forward
+    alone, backward alone, forward + backward). → per-type report."""
     from dex_tts_tpu_torch.ops.attention import (
         FlashAttentionQKV,
         attention_bwd_reference,
         attention_delta,
         attention_reference_lse,
         flash_attention,
-        flash_attention_bwd_dkv,
-        flash_attention_bwd_dq,
+        flash_attention_bwd,
     )
 
     report = {}
@@ -334,8 +336,8 @@ def phase_attention_backward():
         dqkv = torch.empty_like(qkv)
 
         def kernels_bwd():
-            flash_attention_bwd_dkv(q, k, v, do, lse, delta, dqkv[:, :, 1], dqkv[:, :, 2], scale)
-            flash_attention_bwd_dq(q, k, v, do, lse, delta, dqkv[:, :, 0], scale)
+            flash_attention_bwd(q, k, v, do, lse, delta, dqkv[:, :, 0], dqkv[:, :, 1],
+                                dqkv[:, :, 2], scale)
 
         leaf = qkv.clone().requires_grad_(True)
 
@@ -345,8 +347,6 @@ def phase_attention_backward():
         fwd_ms = time_ms(lambda: flash_attention(q, k, v, scale), 20)
         fwd_lse_ms = time_ms(lambda: flash_attention(q, k, v, scale, with_lse=True), 20)
         ms = time_ms(kernels_bwd, 20)
-        dkv_ms = time_ms(lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, dqkv[:, :, 1],
-                                                         dqkv[:, :, 2], scale), 20)
         fwd_bwd_ms = time_ms(kernel_fwd_bwd, 10)
         plain_ms = time_ms(lambda: attention_bwd_reference(q, k, v, out, lse, do, scale), 3)
         plain_fwd_bwd_ms = time_ms(lambda: attention_bwd_reference(
@@ -356,19 +356,29 @@ def phase_attention_backward():
         library_ms = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=scale)
             .backward(dot), 10)
+        # SDPA's forward alone on inputs that require grad (it keeps its
+        # log-sum-exp, as a train step's forward does), and its backward
+        # alone on one retained graph
+        library_fwd_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=scale), 20)
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+        library_bwd_ms = time_ms(
+            lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True), 20)
+        del sdpa_out
         bound_ms, bound_by = attention_bwd_bound_ms(*TRAIN_ATTN_SHAPE, dtype)
         fb_bound_ms, fb_bound_by = attention_fwd_bwd_bound_ms(*TRAIN_ATTN_SHAPE, dtype)
         report[dtype] = dict(max_abs_err=worst, max_lse_err=worst_lse,
                              tolerance=f"o: {fwd_tol}; grads: {rel} x max(max|grad|, max|dv| / 10)",
                              fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms,
-                             ms=ms, dkv_ms=dkv_ms, dq_ms=ms - dkv_ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by, fwd_bwd_ms=fwd_bwd_ms,
+                             library_fwd_lse_shape_ms=library_fwd_ms,
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             library_bwd_ms=library_bwd_ms, fwd_bwd_ms=fwd_bwd_ms,
                              plain_fwd_bwd_ms=plain_fwd_bwd_ms, fwd_bwd_bound_ms=fb_bound_ms,
                              fwd_bwd_bound_by=fb_bound_by, library_ms=library_ms)
         log(f"flash forward {dtype} at {TRAIN_ATTN_SHAPE}: {fwd_ms:.4f} ms, with log-sum-exp"
-            f" {fwd_lse_ms:.4f} ms")
-        log(f"flash backward {dtype} at {TRAIN_ATTN_SHAPE}: dK/dV + dQ kernels {ms:.4f} ms"
-            f" (dK/dV {dkv_ms:.4f} ms), plain bwd {plain_ms:.4f} ms, bound {bound_ms:.4f} ms"
+            f" {fwd_lse_ms:.4f} ms; sdpa forward {library_fwd_ms:.4f} ms")
+        log(f"flash backward {dtype} at {TRAIN_ATTN_SHAPE}: {ms:.4f} ms, plain bwd"
+            f" {plain_ms:.4f} ms, sdpa bwd {library_bwd_ms:.4f} ms, bound {bound_ms:.4f} ms"
             f" ({bound_by}); fwd+bwd {fwd_bwd_ms:.4f} ms, plain {plain_fwd_bwd_ms:.4f} ms, sdpa"
             f" {library_ms:.4f} ms, bound {fb_bound_ms:.4f} ms ({fb_bound_by})")
         del qkv, do, out, dqkv, leaf, qt, kt, vt
@@ -653,8 +663,9 @@ def bench_train_batch(b=32, frames=256, n_feats=80, tx=96):
 
 
 class _PlainAttentionBrokenDq(torch.autograd.Function):
-    """The plain forward with the plain backward, dQ zeroed: a broken
-    backward kernel, for the card-vs-CPU control."""
+    """The plain forward with `flash_attention_bwd`'s plain counterpart
+    (`attention_bwd_reference`), dQ zeroed: a broken backward kernel, for
+    the card-vs-CPU control."""
 
     @staticmethod
     def forward(ctx, qkv, scale):
@@ -690,7 +701,7 @@ def phase_train_card_vs_cpu():
 
     from dex_tts_tpu_torch.config import load_preset
     from dex_tts_tpu_torch.models import dit, tts
-    from dex_tts_tpu_torch.ops.attention import flash_attention, flash_attention_bwd_dq
+    from dex_tts_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
     from dex_tts_tpu_torch.ops.mas import MAS_ERRORS, maximum_path
     from dex_tts_tpu_torch.ops.masks import sequence_mask
 
@@ -775,9 +786,9 @@ def phase_train_card_vs_cpu():
         shifted = worst_ratio(run(cpu_model, "cpu"), want)
     with mock.patch.object(dit, "flash_attention_qkv", _PlainAttentionBrokenDq.apply):
         no_dq = worst_ratio(run(cpu_model, "cpu"), want)
-    flash_attention.launches = flash_attention_bwd_dq.launches = maximum_path.launches = 0
+    flash_attention.launches = flash_attention_bwd.launches = maximum_path.launches = 0
     got = run(gpu_model, "cuda")
-    launches = dict(fwd=flash_attention.launches, bwd_dq=flash_attention_bwd_dq.launches,
+    launches = dict(fwd=flash_attention.launches, bwd=flash_attention_bwd.launches,
                     mas=maximum_path.launches)
     ratio = worst_ratio(got, want)
     log(f"train step card vs CPU (f32, depth-cut DeX, 880 DiT tokens, attention flash):"
@@ -787,7 +798,7 @@ def phase_train_card_vs_cpu():
         f" grads {TRAIN_GRAD_REL} x (max|g| + 1e-3 x top))")
     assert ratio[0] <= 1.0, ratio
     assert shifted[0] > 10 and no_dq[0] > 10, (shifted, no_dq)
-    assert launches == dict(fwd=1, bwd_dq=1, mas=1), launches
+    assert launches == dict(fwd=1, bwd=1, mas=1), launches
     return dict(worst_ratio=ratio[0], shifted_ratio=shifted[0], no_dq_ratio=no_dq[0])
 
 
@@ -836,11 +847,7 @@ def phase_train_main_path(card: str, attention: str, steps: int = 10) -> dict:
     warm-up step, then ``steps`` timed ones, the counts set to 0 just
     before them and read just after. → launches per kernel, steps/s, peak
     memory, last metrics."""
-    from dex_tts_tpu_torch.ops.attention import (
-        flash_attention,
-        flash_attention_bwd_dkv,
-        flash_attention_bwd_dq,
-    )
+    from dex_tts_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
     from dex_tts_tpu_torch.ops.mas import maximum_path
     from dex_tts_tpu_torch.train.trainer import metrics_to_host
 
@@ -848,7 +855,7 @@ def phase_train_main_path(card: str, attention: str, steps: int = 10) -> dict:
     metrics_to_host(step(state, batch))  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq, maximum_path)
+    counters = (flash_attention, flash_attention_bwd, maximum_path)
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -863,8 +870,8 @@ def phase_train_main_path(card: str, attention: str, steps: int = 10) -> dict:
         f" {peak_gb:.2f} GiB, last {last}, launches {launches} [{card}]")
     assert all(math.isfinite(v) for v in last.values()), last
     flash = steps * cfg.dit.depth if mode.startswith("flash") else 0
-    assert launches == dict(flash_attention=flash, flash_attention_bwd_dkv=flash,
-                            flash_attention_bwd_dq=flash, maximum_path=steps), launches
+    assert launches == dict(flash_attention=flash, flash_attention_bwd=flash,
+                            maximum_path=steps), launches
     del state
     torch.cuda.empty_cache()
     return dict(mode=mode, launches=launches, steps_per_s=steps / wall,
@@ -1077,21 +1084,23 @@ def main():
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
         "replaces_also": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
         "reached_from": "dex_tts_tpu/models/dit.py:410",
-        # the dK/dV and the dQ kernel, one launch each per attention call
-        "launches": (train["flash_bf16"]["launches"]["flash_attention_bwd_dkv"]
-                     + train["flash_bf16"]["launches"]["flash_attention_bwd_dq"]),
-        "launches_by_path": {k: v["flash_attention_bwd_dkv"] + v["flash_attention_bwd_dq"]
-                             for k, v in train_launches.items()},
+        # one count per backward call (bf16: the one-pass kernel and its
+        # dQ convert)
+        "launches": train["flash_bf16"]["launches"]["flash_attention_bwd"],
+        "launches_by_path": {k: v["flash_attention_bwd"] for k, v in train_launches.items()},
         "max_abs_err": bwd[torch.bfloat16]["max_abs_err"],
         # every time covers one FlashAttentionQKV forward (with the
         # log-sum-exp) and backward, the call a train step makes, as the
         # library's (SDPA forward + backward on the same views) does; the
-        # backward kernels alone are under "bf16" and "f32"
+        # backward alone and the forward alone, each beside SDPA's, are the
+        # two keys below and under "bf16" and "f32"
         "ms": bwd[torch.bfloat16]["fwd_bwd_ms"],
         "plain_ms": bwd[torch.bfloat16]["plain_fwd_bwd_ms"],
         "bound_ms": bwd[torch.bfloat16]["fwd_bwd_bound_ms"],
         "bound_by": bwd[torch.bfloat16]["fwd_bwd_bound_by"],
         "library_ms": bwd[torch.bfloat16]["library_ms"],
+        "library_bwd_ms": bwd[torch.bfloat16]["library_bwd_ms"],
+        "library_fwd_lse_shape_ms": bwd[torch.bfloat16]["library_fwd_lse_shape_ms"],
         "covers": "forward with log-sum-exp + backward",
         "shape": list(TRAIN_ATTN_SHAPE),
         "dtype": "bfloat16",

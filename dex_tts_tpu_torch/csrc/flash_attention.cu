@@ -1,6 +1,5 @@
 // Flash attention for the DiT's multi-head self-attention, Hopper: the
-// forward (with its log-sum-exp for training) and the backward's dK/dV and
-// dQ kernels.
+// forward (with its log-sum-exp for training) and the backward.
 //
 // Replaces the TPU kernels reached from dex_tts_tpu/models/dit.py
 // MHSA._flash (the library Pallas kernel
@@ -13,28 +12,38 @@
 // Forward bound at the main-path shape (B=16, H=2, T=3840, hd=128, bf16
 // on an H100 SXM): 4·B·H·T²·hd = 2.42e11 FLOP → 0.244 ms at 989 TFLOP/s,
 // against 4 × 31.5 MB of q, k, v, o → 0.038 ms at 3.35 TB/s. The kernel is
-// bound by operations, so the work goes to the tensor cores and the T×T
-// scores never leave registers.
+// bound by operations, so the work goes to the tensor cores (wgmma, the
+// only path to their full rate) and the T×T scores never leave registers.
 //
-// Forward design (first version: simple and correct; a wgmma + TMA
-// redesign with a producer warp and a ring of K/V tiles is later work):
-//   * grid (B·H, ⌈T/64⌉); 4 warps per CTA, each owns 16 query rows whose
-//     bf16 fragments stay in registers for the whole key loop;
-//   * a loop inside the CTA walks 64-key K/V tiles staged in shared memory
-//     (rows padded by 16 bytes so fragment loads are free of bank
-//     conflicts); keys ≥ T are zero-filled and scored −inf, queries ≥ T are
-//     not stored, so any T works with no padding copy;
-//   * S = Q·Kᵀ and O += P·V by mma.sync m16n8k16 (bf16 in, f32 accumulate);
-//     V fragments come from ldmatrix.trans; P is rounded to bf16 before
-//     P·V, as the JAX einsum branch rounds its weights to the compute type;
-//   * online softmax with f32 running max and sum; the scale hd^-½ is
-//     applied to the f32 scores (folded with log2 e for exp2);
+// bf16 forward (flash_fwd_bf16): one CTA per (128-query tile, b·h), the
+// tiles of one (b, h) launched next to each other so that its K and V stay
+// in L2 while they are read; three warpgroups, warp-specialised:
+//   * a producer warpgroup (setmaxnreg.dec to 24) whose one thread starts
+//     TMA loads: the Q tile once, then 128-key K and V tiles through a
+//     3-stage ring (224 KB of shared memory in all) with full/empty
+//     mbarriers, so loads run a tile or more ahead of the tensor cores;
+//   * two consumer warpgroups (setmaxnreg.inc to 240) of 64 query rows;
+//     S = Q·Kᵀ by wgmma m64n128k16 with both operands in shared memory,
+//     the online softmax in registers in f32 (exp2, the scale hd^-½ folded
+//     with log2 e into the f32 scores), P rounded to bf16 in registers (as
+//     the JAX einsum branch rounds its weights to the compute type), then
+//     O += P·V by wgmma with A from registers and V as an MN-major B
+//     operand. Each consumer starts S of tile n and P·V of tile n − 1
+//     together and runs the softmax of tile n while that P·V is on the
+//     tensor cores; the two consumers take turns to start (two named
+//     barriers), so one's softmax runs under the other's products; a
+//     consumer releases a ring slot after its P·V wait;
+//   * TMA reads q, k, v through 4-D tensor maps (hd, H, T, B) built per
+//     call from the views' strides: rows ≥ T of a batch item come back as
+//     zeros, keys ≥ T are scored −inf, queries ≥ T are not stored, so any
+//     T works with no padding copy. hd = 128 bf16 is 256 bytes, twice the
+//     128-byte swizzle span, so every tile is two 64-column boxes with the
+//     128-byte swizzle, which the wgmma descriptors describe;
 //   * with a non-null `lse` (training) each query's natural-log
-//     log-sum-exp of the scaled scores is written to lse[b, h, t] (f32);
-//     that is a second instantiation, so inference runs the kernel with no
-//     log-sum-exp code in it.
-// The f32 variant does the same with f32 FMA on the CUDA cores (no TF32):
-// 4 threads per query, each holding 32 of the 128 dims.
+//     log-sum-exp of the scaled scores goes to lse[b, h, t] (f32); that is
+//     a second instantiation, so inference carries no log-sum-exp code.
+// The f32 variant is plain FMA on the CUDA cores (no TF32): 4 threads per
+// query, each holding 32 of the 128 dims.
 //
 // Backward (per (b, h), with D = rowsum(dO∘O) computed outside, as the
 // library computes it in XLA): P = exp(S·scale − lse) recomputed from the
@@ -46,23 +55,37 @@
 // operations (S and dP recomputed, dV, dK, dQ: five T×T×hd products) =
 // 6.3e10 → 0.064 ms at 989 TFLOP/s; bytes (q, k, v, o, dO read, dq, dk, dv
 // written, lse and D) ≈ 58 MB → 0.017 ms. Bound by operations.
-//   * dK/dV: grid (B·H, ⌈T/64⌉ key blocks); 4 warps × 16 keys; the key
-//     block's K and V tiles and 32-query Q and dO tiles live in shared
-//     memory (dynamic, 52 KB), the dK and dV sums (2 × 64 f32 per thread)
-//     in registers; Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ come from the same mma
-//     pattern as the forward's S, dV += Pᵀ·dO and dK += dSᵀ·Q from its P·V
-//     pattern (ldmatrix.trans on the Q and dO tiles).
-//   * dQ: grid (B·H, ⌈T/64⌉ query blocks); 4 warps × 16 queries with their
-//     Q and dO fragments in registers (as the forward's Q), 64-key K/V
-//     tiles in shared memory walked in 32-key halves, dQ += dS·K.
-//   * queries ≥ T are zero rows with lse = +inf (P = 0), keys ≥ T zero rows
-//     whose P is forced to 0 in dQ and whose dK/dV are not stored; any T.
-//   * the f32 variants: 4 threads per key (dK/dV) or per query (dQ), each
-//     holding 32 dims, 32-row tiles, FMA on the CUDA cores.
+//   * bf16, one pass (flash_bwd_bf16): one CTA per (128-key block, b·h),
+//     warp-specialised as the forward. The producer loads the block's K
+//     and V once by TMA, then streams 64-query Q and dO tiles through a
+//     2-stage ring; its warp writes each tile's lse and D (f32 rows, plain
+//     loads: T·4 bytes need not be a multiple of 16, which a tensor map
+//     would require) into the stage and arrives on its full barrier. Each
+//     consumer warpgroup owns 64 keys: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ by wgmma
+//     from shared memory, Pᵀ and dSᵀ in f32 registers, dV += bf16(Pᵀ)·dO
+//     and dK += bf16(dSᵀ)·Q by wgmma with A from registers; S and dP are
+//     computed once. dSᵀ goes to shared memory in bf16 (double-buffered,
+//     one barrier of the two consumers per tile), and each consumer forms
+//     the tile's dQ partial dS·K over all 128 keys for its half of hd; the
+//     partial goes through shared memory into an f32 accumulator of
+//     ⌈T/64⌉·64·hd values per (b, h) by one TMA bulk reduce-add, so the
+//     consumers run no atomics. A second small kernel
+//     (flash_bwd_dq_convert) writes dq = bf16(scale·accumulator), as
+//     FlashAttention-3 does.
+//   * queries ≥ T are zero rows with lse = +inf (P = 0), keys ≥ T zero
+//     rows whose P is forced to 0 and whose dK/dV are not stored; any T.
+//   * the f32 variants: dK/dV and dQ kernels, 4 threads per key (dK/dV) or
+//     per query (dQ), each holding 32 dims, 32-row tiles, FMA on the CUDA
+//     cores.
 // Inputs are read through strides (views of the DiT's (B, T, 3, H, hd)
 // projection); gradients are written through strides into one
 // (B, T, 3, H, hd) buffer.
+//
+// The bf16 kernels need sm_90a (wgmma, setmaxnreg, TMA). The tensor maps
+// are encoded on the host by cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint, so the library links no libcuda.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,211 +97,391 @@ constexpr int kHeadDim = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// ---------------------------------------------------------------- bf16 ---
+// ---------------------------------------------- Hopper building blocks ---
 
-constexpr int kBlockQ = 64;             // 4 warps × 16 query rows
-constexpr int kBlockK = 64;             // keys per shared-memory tile
-constexpr int kRow = kHeadDim + 8;      // padded smem row, bf16 elements
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// one 64-column box of a 4-D (hd, H, T, B) tensor map into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int h, int t, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(h), "r"(t), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile in the 128-byte-swizzled layout
+// TMA writes (rows of 128 bytes, 8-row atoms of 1024 bytes, 1024-aligned
+// bases). K-major operands: `lbo` unused, `sbo` the 8-row atom stride.
+// MN-major operands: `lbo` the stride between 64-element atoms along M/N,
+// `sbo` the stride between 8-row groups along K.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving register reads or writes across a wgmma
+// wait (the tensor cores read and write these registers asynchronously)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
+}
+
+#define WG_D32                                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_D64                                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "  \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define WG_F8(d, i)                                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_F32(d) WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24)
+#define WG_F64(d) WG_F32(d), WG_F8(d, 32), WG_F8(d, 40), WG_F8(d, 48), WG_F8(d, 56)
+
+// D(64×128, f32) (+)= A(64×16) · B(16×128), A and B from shared memory,
+// both K-major; `acc` 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_F64(d)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D(64×128, f32) += A(64×16, bf16 registers) · B(16×128), B MN-major
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_F64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D(64×64, f32) (+)= A(64×16) · B(16×64) from shared memory; kTrans: both
+// operands MN-major (else both K-major)
+template <int kTrans>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", %32, %33, p, 1, 1, %35, %35;\n}\n"
+      : WG_F32(d)
+      : "l"(da), "l"(db), "r"(acc), "n"(kTrans));
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// The f32 accumulator of an m64nN wgmma, per thread: d[4i + e] is row
+// 16·warp + g + 8·(e >> 1), column 8i + 2·tq + (e & 1) (g = lane / 4, tq =
+// lane % 4). Two neighbouring 8-column groups of it are, rounded to bf16,
+// the register A operand of one k16 step.
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 16][4], const float (&d)[N / 2]) {
+#pragma unroll
+  for (int j = 0; j < N / 16; ++j) {
+    a[j][0] = pack_bf16(d[8 * j], d[8 * j + 1]);
+    a[j][1] = pack_bf16(d[8 * j + 2], d[8 * j + 3]);
+    a[j][2] = pack_bf16(d[8 * j + 4], d[8 * j + 5]);
+    a[j][3] = pack_bf16(d[8 * j + 6], d[8 * j + 7]);
+  }
 }
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+constexpr int kBox = 64;                 // hd columns per TMA box (128 bytes)
+constexpr uint32_t kAtom = 1024;         // 8 rows × 128 bytes
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kThreads = 384;            // producer + two consumer warpgroups
+
+// ------------------------------------------------------ bf16 forward ---
+
+constexpr int kTileQ = 128;   // queries per CTA: two consumer warpgroups × 64
+constexpr int kTileK = 128;   // keys per K/V ring stage
+constexpr int kFwdStages = 3;
+constexpr uint32_t kTileBytes = kTileK * kBox * 2;          // one 128-row box, 16 KB
+constexpr int kFwdQ = 0;                                    // Q: two boxes
+constexpr int kFwdKV = 2 * kTileBytes;                      // stage s: K boxes, then V boxes
+constexpr int kFwdStage = 4 * kTileBytes;
+constexpr int kFwdBar = kFwdKV + kFwdStages * kFwdStage;    // q, full[3], empty[3]
+constexpr int kFwdSmem = kFwdBar + 64 + 1024;               // + slack for 1024-alignment
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1,
-                                              uint32_t& r2, uint32_t& r3,
-                                              const __nv_bfloat16* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr)
-      : "memory");
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// The online softmax of one 64×128 score tile held as an m64n128
+// accumulator (rows g and g + 8 of each warp's 16): keys ≥ T scored −inf,
+// scores scaled into log2 units, running max and sum updated; the tile
+// becomes P = exp2(s − max) in place. → the factor for the output so far.
+__device__ __forceinline__ void online_softmax(float (&sc)[64], float (&m_run)[2],
+                                               float (&l_run)[2], float (&alpha)[2], int k0,
+                                               int T, int tq, float scale_log2) {
+  if (k0 + kTileK > T) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      if (k0 + 8 * (i >> 2) + 2 * tq + (i & 1) >= T) sc[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    sc[i] *= scale_log2;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  }
+  float base[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_run[r], mx[r]);
+    base[r] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = exp2f(m_run[r] - base[r]);
+    m_run[r] = m_new;
+  }
+  float rsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const float p = exp2f(sc[i] - base[(i >> 1) & 1]);
+    sc[i] = p;
+    rsum[(i >> 1) & 1] += p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rsum[r];
 }
 
 template <bool kLse>
-__global__ void __launch_bounds__(128)
-flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v,
-               __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-               int T, int H,
-               long long q_sb, long long q_st, long long q_sh,
-               long long k_sb, long long k_st, long long k_sh,
-               long long v_sb, long long v_st, long long v_sh,
-               float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kBlockK * kRow];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBlockK * kRow];
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;   // row within the 8-row half of a fragment
-  const int tq = lane & 3;   // column pair within a fragment
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-
-  // this thread's two query rows (g and g + 8 of the warp's 16)
-  const int r0 = blockIdx.y * kBlockQ + warp * 16 + g;
-  const int r1 = r0 + 8;
-  const bool ok0 = r0 < T;
-  const bool ok1 = r1 < T;
-
-  uint32_t qf[kHeadDim / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-    const int c = kk * 16 + tq * 2;
-    qf[kk][0] = ok0 ? load_u32(qb + r0 * q_st + c) : 0u;
-    qf[kk][1] = ok1 ? load_u32(qb + r1 * q_st + c) : 0u;
-    qf[kk][2] = ok0 ? load_u32(qb + r0 * q_st + c + 8) : 0u;
-    qf[kk][3] = ok1 ? load_u32(qb + r1 * q_st + c + 8) : 0u;
-  }
-
-  float acc[kHeadDim / 8][4];
-#pragma unroll
-  for (int d = 0; d < kHeadDim / 8; ++d) {
-    acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  }
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-
-  const int n_tiles = (T + kBlockK - 1) / kBlockK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlockK;
-    // stage the K and V tiles: 64 rows × 16 chunks of 16 bytes each
-    for (int i = threadIdx.x; i < kBlockK * (kHeadDim / 8); i += blockDim.x) {
-      const int row = i / (kHeadDim / 8);
-      const int ch = (i % (kHeadDim / 8)) * 8;
-      const int key = k0 + row;
-      uint4 kx = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vx = make_uint4(0u, 0u, 0u, 0u);
-      if (key < T) {
-        kx = *reinterpret_cast<const uint4*>(kb + key * k_st + ch);
-        vx = *reinterpret_cast<const uint4*>(vb + key * v_st + ch);
-      }
-      *reinterpret_cast<uint4*>(ks + row * kRow + ch) = kx;
-      *reinterpret_cast<uint4*>(vs + row * kRow + ch) = vx;
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+               const __grid_constant__ CUtensorMap mv, __nv_bfloat16* __restrict__ o,
+               float* __restrict__ lse, int T, int H, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + kFwdBar);
+  uint64_t* q_full = bar;
+  uint64_t* full = bar + 1;
+  uint64_t* empty = bar + 1 + kFwdStages;
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int t0 = blockIdx.x * kTileQ;
+  const int n_tiles = (T + kTileK - 1) / kTileK;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = Q·Kᵀ for the warp's 16 rows × 64 keys (8 tiles of 8 keys)
-    float s[kBlockK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  if (threadIdx.x < 128) {
+    // producer: one thread starts every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(q_full, 2 * kTileBytes);
+      tma_load(sm + kFwdQ, &mq, q_full, 0, h, t0, b);
+      tma_load(sm + kFwdQ + kTileBytes, &mq, q_full, kBox, h, t0, b);
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int s = kt % kFwdStages;
+        mbar_wait(&empty[s], ((kt / kFwdStages) & 1) ^ 1);
+        unsigned char* kv = sm + kFwdKV + s * kFwdStage;
+        mbar_arrive_tx(&full[s], 4 * kTileBytes);
+        tma_load(kv, &mk, &full[s], 0, h, kt * kTileK, b);
+        tma_load(kv + kTileBytes, &mk, &full[s], kBox, h, kt * kTileK, b);
+        tma_load(kv + 2 * kTileBytes, &mv, &full[s], 0, h, kt * kTileK, b);
+        tma_load(kv + 3 * kTileBytes, &mv, &full[s], kBox, h, kt * kTileK, b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int c = threadIdx.x / 128 - 1;  // consumer warpgroup: query rows 64c..64c+63
+    const int w = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+    const uint32_t q_base = smem_u32(sm + kFwdQ) + c * 64 * 128;
+    const uint32_t kv_base = smem_u32(sm + kFwdKV);
+
+    // S = Q·Kᵀ of the tile in stage s: 64 queries × 128 keys, 8 k16 steps
+    // over hd (4 per box); started, not waited on
+    auto mma_s = [&](float (&sc)[64], int s) {
+      const uint32_t k_base = kv_base + s * kFwdStage;
 #pragma unroll
       for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-        const __nv_bfloat16* kp = ks + (n * 8 + g) * kRow + kk * 16 + tq * 2;
-        mma_bf16(s[n], qf[kk], load_u32(kp), load_u32(kp + 8));
+        const uint32_t off = (kk >> 2) * kTileBytes + (kk & 3) * 32;
+        wgmma_ss_n128(sc, sw128_desc(q_base + off, 16, kAtom), sw128_desc(k_base + off, 16, kAtom),
+                      kk);
       }
-    }
+      wgmma_commit();
+    };
+    // O += P·V of the tile in stage s: P (bf16) from registers, V
+    // MN-major, 8 k16 steps over keys; started, not waited on
+    auto mma_pv = [&](float (&acc)[64], const uint32_t (&pf)[8][4], int s) {
+      const uint32_t v_base = kv_base + s * kFwdStage + 2 * kTileBytes;
+#pragma unroll
+      for (int j = 0; j < kTileK / 16; ++j) {
+        wgmma_rs_n128(acc, pf[j], sw128_desc(v_base + j * 2 * kAtom, kTileBytes, kAtom));
+      }
+      wgmma_commit();
+    };
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    };
+    // turns to start products: consumer c waits on barrier 1 + c, then
+    // hands the turn on (consumer 0 first; each consumer starts products n_tiles + 1
+    // times, and consumer 1 skips its last hand-on, which no one waits for)
+    auto gemm_turn = [&]() { asm volatile("bar.sync %0, 256;\n" ::"r"(1 + c) : "memory"); };
+    auto pass_turn = [&]() { asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - c) : "memory"); };
+    if (c == 1) pass_turn();
 
-    // scale, mask keys ≥ T, row max over the tile
-    float mx[2] = {-INFINITY, -INFINITY};
+    float acc[64];
 #pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + tq * 2 + (e & 1);
-        const float val = key < T ? s[n][e] * scale_log2 : -INFINITY;
-        s[n][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    }
-    float base[2];
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};
     float alpha[2];
-    float rsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_run[i], mx[i]);
-      base[i] = m_new == -INFINITY ? 0.f : m_new;
-      alpha[i] = exp2f(m_run[i] - base[i]);
-      m_run[i] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - base[e >> 1]);
-        s[n][e] = p;
-        rsum[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + rsum[i];
-#pragma unroll
-    for (int d = 0; d < kHeadDim / 8; ++d) {
-      acc[d][0] *= alpha[0];
-      acc[d][1] *= alpha[0];
-      acc[d][2] *= alpha[1];
-      acc[d][3] *= alpha[1];
-    }
+    float sc[64];
+    uint32_t pf[8][4];
 
-    // O += P·V, 16 keys per step; the S accumulator layout of two 8-key
-    // tiles is the A-operand layout of one 16-key step
-    const int mi = lane >> 3;   // which 8×8 matrix this lane addresses
-    const int mr = lane & 7;    // which row of it
-#pragma unroll
-    for (int j = 0; j < kBlockK / 16; ++j) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-      for (int dn = 0; dn < kHeadDim / 16; ++dn) {
-        const __nv_bfloat16* vp =
-            vs + (j * 16 + mr + (mi & 1) * 8) * kRow + dn * 16 + (mi >> 1) * 8;
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4_trans(b0, b1, b2, b3, vp);
-        mma_bf16(acc[2 * dn], a, b0, b1);
-        mma_bf16(acc[2 * dn + 1], a, b2, b3);
-      }
-    }
-    __syncthreads();
-  }
+    // tile 0: S, softmax, P
+    mbar_wait(q_full, 0);
+    mbar_wait(&full[0], 0);
+    gemm_turn();
+    wgmma_fence();
+    mma_s(sc, 0);
+    pass_turn();
+    wgmma_wait_all();
+    fence_regs(sc);
+    online_softmax(sc, m_run, l_run, alpha, 0, T, tq, scale_log2);
+    acc_to_a<128>(pf, sc);
 
-  float inv[2];
+    // tile kt: S of kt runs on the tensor cores with P·V of kt − 1 behind
+    // it, and the softmax of kt overlaps that P·V
+    for (int kt = 1; kt < n_tiles; ++kt) {
+      const int s = kt % kFwdStages;
+      const int prev = (kt - 1) % kFwdStages;
+      mbar_wait(&full[s], (kt / kFwdStages) & 1);
+      gemm_turn();
+      wgmma_fence();
+      mma_s(sc, s);
+      mma_pv(acc, pf, prev);
+      pass_turn();
+      wgmma_wait_one();  // S done; P·V may still run
+      fence_regs(sc);
+      online_softmax(sc, m_run, l_run, alpha, kt * kTileK, T, tq, scale_log2);
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(pf);
+      release(prev);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
-    inv[i] = l_run[i] > 0.f ? 1.f / l_run[i] : 0.f;
-  }
-  if (kLse && tq == 0) {  // natural-log log-sum-exp of the scaled scores
-    float* lb = lse + static_cast<long long>(blockIdx.x) * T;
-    if (ok0) lb[r0] = (m_run[0] + log2f(l_run[0])) * kLn2;
-    if (ok1) lb[r1] = (m_run[1] + log2f(l_run[1])) * kLn2;
-  }
-  const long long o_st = static_cast<long long>(H) * kHeadDim;
-  __nv_bfloat16* ob = o + static_cast<long long>(b) * T * o_st + h * kHeadDim;
-#pragma unroll
-  for (int d = 0; d < kHeadDim / 8; ++d) {
-    const int c = d * 8 + tq * 2;
-    if (ok0) {
-      *reinterpret_cast<uint32_t*>(ob + r0 * o_st + c) =
-          pack_bf16(acc[d][0] * inv[0], acc[d][1] * inv[0]);
+      for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      acc_to_a<128>(pf, sc);
     }
-    if (ok1) {
-      *reinterpret_cast<uint32_t*>(ob + r1 * o_st + c) =
-          pack_bf16(acc[d][2] * inv[1], acc[d][3] * inv[1]);
+    gemm_turn();
+    wgmma_fence();
+    mma_pv(acc, pf, (n_tiles - 1) % kFwdStages);
+    if (c == 0) pass_turn();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(pf);
+    release((n_tiles - 1) % kFwdStages);
+
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+      inv[r] = l_run[r] > 0.f ? 1.f / l_run[r] : 0.f;
+    }
+    const int r0 = t0 + c * 64 + w * 16 + g;
+    const int r1 = r0 + 8;
+    if (kLse && tq == 0) {  // natural-log log-sum-exp of the scaled scores
+      float* lb = lse + static_cast<long long>(blockIdx.y) * T;
+      if (r0 < T) lb[r0] = (m_run[0] + log2f(l_run[0])) * kLn2;
+      if (r1 < T) lb[r1] = (m_run[1] + log2f(l_run[1])) * kLn2;
+    }
+    const long long o_st = static_cast<long long>(H) * kHeadDim;
+    __nv_bfloat16* ob = o + static_cast<long long>(b) * T * o_st + h * kHeadDim;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int col = 8 * i + 2 * tq;
+      if (r0 < T) {
+        *reinterpret_cast<uint32_t*>(ob + r0 * o_st + col) =
+            pack_bf16(acc[4 * i] * inv[0], acc[4 * i + 1] * inv[0]);
+      }
+      if (r1 < T) {
+        *reinterpret_cast<uint32_t*>(ob + r1 * o_st + col) =
+            pack_bf16(acc[4 * i + 2] * inv[1], acc[4 * i + 3] * inv[1]);
+      }
     }
   }
 }
@@ -405,7 +608,6 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-
 // --------------------------------------------------------- backward ---
 
 struct Strides {
@@ -437,261 +639,284 @@ __device__ __forceinline__ T_* at_mut(void* base, const Strides& s, int b, int h
   return static_cast<T_*>(base) + b * s.b + h * s.h;
 }
 
-constexpr int kBwdBlockQ = 32;  // queries per staged tile in dK/dV
-constexpr int kBwdSmem =
-    (2 * kBlockK + 2 * kBwdBlockQ) * kRow * 2 + 2 * kBwdBlockQ * 4;
+// ----------------------------------------------------- bf16 backward ---
 
-// one 64-row × 128 bf16 tile (rows ≥ T zero-filled) into padded smem
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           long long st, int r0, int rows, int T) {
-  for (int i = threadIdx.x; i < rows * (kHeadDim / 8); i += blockDim.x) {
-    const int row = i / (kHeadDim / 8);
-    const int ch = (i % (kHeadDim / 8)) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + row < T) x = *reinterpret_cast<const uint4*>(src + (r0 + row) * st + ch);
-    *reinterpret_cast<uint4*>(dst + row * kRow + ch) = x;
-  }
-}
+constexpr int kBwdTileQ = 64;                               // queries per ring stage
+constexpr uint32_t kQBoxBytes = kBwdTileQ * kBox * 2;       // one 64-row box, 8 KB
+constexpr int kBwdK = 0;                                    // K: two 128-row boxes
+constexpr int kBwdV = 2 * kTileBytes;                       // V: two 128-row boxes
+constexpr int kBwdQ = 4 * kTileBytes;                       // stage s: Q boxes, then dO boxes
+constexpr int kBwdStage = 4 * kQBoxBytes;
+constexpr int kDsBytes = kTileK * kBwdTileQ * 2;            // dSᵀ: 128 keys × 64 queries, bf16
+constexpr int kBwdDs = kBwdQ + 2 * kBwdStage;               // two dSᵀ buffers
+constexpr int kDqBytes = kBwdTileQ * 64 * 4;                // a dQ partial: 64 queries × 64 dims, f32
+constexpr int kBwdDq = kBwdDs + 2 * kDsBytes;               // one dQ partial per consumer
+constexpr int kBwdStats = kBwdDq + 2 * kDqBytes;            // stage s: lse·log2 e [64], D [64]
+constexpr int kBwdBar = kBwdStats + 2 * 2 * kBwdTileQ * 4;  // kv, full[2], empty[2]
+constexpr int kBwdSmem = kBwdBar + 64 + 1024;
 
-__global__ void __launch_bounds__(128) flash_bwd_dkv_bf16(BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + kBlockK * kRow;
-  __nv_bfloat16* qs = vs + kBlockK * kRow;
-  __nv_bfloat16* dos = qs + kBwdBlockQ * kRow;
-  float* lse_s = reinterpret_cast<float*>(dos + kBwdBlockQ * kRow);  // log2 units
-  float* dl_s = lse_s + kBwdBlockQ;
+struct BwdBf16Args {
+  const float* lse;    // (B, H, T), natural log
+  const float* delta;  // (B, H, T), rowsum(dO∘O)
+  float* dq_acc;       // f32, Tpad·hd per (b, h) in 64×64 blocks (flash_bwd_dq_convert), zeroed
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  Strides sdk, sdv;
+  int T, H;
+  float scale_log2, scale;
+};
 
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+               const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,
+               const BwdBf16Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + kBwdBar);
+  uint64_t* kv_full = bar;
+  uint64_t* full = bar + 1;
+  uint64_t* empty = bar + 3;
+  float* stats = reinterpret_cast<float*>(sm + kBwdStats);
   const int T = a.T;
-  const int b = blockIdx.x / a.H;
-  const int h = blockIdx.x % a.H;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-  const int mi = lane >> 3;
-  const int mr = lane & 7;
-  const __nv_bfloat16* qb = at<__nv_bfloat16>(a.q, a.sq, b, h);
-  const __nv_bfloat16* dob = at<__nv_bfloat16>(a.dout, a.sdo, b, h);
-  const float* lb = a.lse + static_cast<long long>(blockIdx.x) * T;
-  const float* db = a.delta + static_cast<long long>(blockIdx.x) * T;
-  const int k0 = blockIdx.y * kBlockK;
-  stage_rows(ks, at<__nv_bfloat16>(a.k, a.sk, b, h), a.sk.t, k0, kBlockK, T);
-  stage_rows(vs, at<__nv_bfloat16>(a.v, a.sv, b, h), a.sv.t, k0, kBlockK, T);
-
-  float dk[kHeadDim / 8][4];
-  float dv[kHeadDim / 8][4];
-#pragma unroll
-  for (int d = 0; d < kHeadDim / 8; ++d) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
+  const int bh = blockIdx.y;
+  const int b = bh / a.H;
+  const int h = bh % a.H;
+  const int k0 = blockIdx.x * kTileK;
+  const int n_q = (T + kBwdTileQ - 1) / kBwdTileQ;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes, after their lse/D stores
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const int kr = warp * 16;  // the warp's first key row in ks / vs
+  __syncthreads();
 
-  for (int q0 = 0; q0 < T; q0 += kBwdBlockQ) {
-    __syncthreads();  // K/V staged; the previous Q/dO tile consumed
-    stage_rows(qs, qb, a.sq.t, q0, kBwdBlockQ, T);
-    stage_rows(dos, dob, a.sdo.t, q0, kBwdBlockQ, T);
-    if (threadIdx.x < kBwdBlockQ) {
-      const int q = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = q < T ? lb[q] * kLog2e : INFINITY;
-      dl_s[threadIdx.x] = q < T ? db[q] : 0.f;
-    }
-    __syncthreads();
-
-    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ for the warp's 16 keys × 32 queries
-    float st[kBwdBlockQ / 8][4];
-    float dpt[kBwdBlockQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBwdBlockQ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-      const int c = kk * 16 + tq * 2;
-      uint32_t ka[4], va[4];
-      ka[0] = load_u32(ks + (kr + g) * kRow + c);
-      ka[1] = load_u32(ks + (kr + g + 8) * kRow + c);
-      ka[2] = load_u32(ks + (kr + g) * kRow + c + 8);
-      ka[3] = load_u32(ks + (kr + g + 8) * kRow + c + 8);
-      va[0] = load_u32(vs + (kr + g) * kRow + c);
-      va[1] = load_u32(vs + (kr + g + 8) * kRow + c);
-      va[2] = load_u32(vs + (kr + g) * kRow + c + 8);
-      va[3] = load_u32(vs + (kr + g + 8) * kRow + c + 8);
-#pragma unroll
-      for (int n = 0; n < kBwdBlockQ / 8; ++n) {
-        const __nv_bfloat16* qp = qs + (n * 8 + g) * kRow + c;
-        mma_bf16(st[n], ka, load_u32(qp), load_u32(qp + 8));
-        const __nv_bfloat16* dp = dos + (n * 8 + g) * kRow + c;
-        mma_bf16(dpt[n], va, load_u32(dp), load_u32(dp + 8));
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_arrive_tx(kv_full, 4 * kTileBytes);
+        tma_load(sm + kBwdK, &mk, kv_full, 0, h, k0, b);
+        tma_load(sm + kBwdK + kTileBytes, &mk, kv_full, kBox, h, k0, b);
+        tma_load(sm + kBwdV, &mv, kv_full, 0, h, k0, b);
+        tma_load(sm + kBwdV + kTileBytes, &mv, kv_full, kBox, h, k0, b);
       }
-    }
-    // Pᵀ = exp(S·scale − lse) and dSᵀ = Pᵀ∘(dPᵀ − D), per query column
-#pragma unroll
-    for (int n = 0; n < kBwdBlockQ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = n * 8 + tq * 2 + (e & 1);
-        const float p = exp2f(st[n][e] * a.scale_log2 - lse_s[qi]);
-        st[n][e] = p;
-        dpt[n][e] = p * (dpt[n][e] - dl_s[qi]);
-      }
-    }
-    // dV += Pᵀ·dO and dK += dSᵀ·Q, 16 queries per step
-#pragma unroll
-    for (int j = 0; j < kBwdBlockQ / 16; ++j) {
-      uint32_t pa[4], sa[4];
-      pa[0] = pack_bf16(st[2 * j][0], st[2 * j][1]);
-      pa[1] = pack_bf16(st[2 * j][2], st[2 * j][3]);
-      pa[2] = pack_bf16(st[2 * j + 1][0], st[2 * j + 1][1]);
-      pa[3] = pack_bf16(st[2 * j + 1][2], st[2 * j + 1][3]);
-      sa[0] = pack_bf16(dpt[2 * j][0], dpt[2 * j][1]);
-      sa[1] = pack_bf16(dpt[2 * j][2], dpt[2 * j][3]);
-      sa[2] = pack_bf16(dpt[2 * j + 1][0], dpt[2 * j + 1][1]);
-      sa[3] = pack_bf16(dpt[2 * j + 1][2], dpt[2 * j + 1][3]);
-      const int row = (j * 16 + mr + (mi & 1) * 8) * kRow + (mi >> 1) * 8;
-#pragma unroll
-      for (int dn = 0; dn < kHeadDim / 16; ++dn) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4_trans(b0, b1, b2, b3, dos + row + dn * 16);
-        mma_bf16(dv[2 * dn], pa, b0, b1);
-        mma_bf16(dv[2 * dn + 1], pa, b2, b3);
-        ldsm_x4_trans(b0, b1, b2, b3, qs + row + dn * 16);
-        mma_bf16(dk[2 * dn], sa, b0, b1);
-        mma_bf16(dk[2 * dn + 1], sa, b2, b3);
-      }
-    }
-  }
-
-  const int r0 = k0 + kr + g;
-  const int r1 = r0 + 8;
-  __nv_bfloat16* dkb = at_mut<__nv_bfloat16>(a.dk, a.sdk, b, h);
-  __nv_bfloat16* dvb = at_mut<__nv_bfloat16>(a.dv, a.sdv, b, h);
-#pragma unroll
-  for (int d = 0; d < kHeadDim / 8; ++d) {
-    const int c = d * 8 + tq * 2;
-    if (r0 < T) {
-      *reinterpret_cast<uint32_t*>(dkb + r0 * a.sdk.t + c) =
-          pack_bf16(dk[d][0] * a.scale, dk[d][1] * a.scale);
-      *reinterpret_cast<uint32_t*>(dvb + r0 * a.sdv.t + c) = pack_bf16(dv[d][0], dv[d][1]);
-    }
-    if (r1 < T) {
-      *reinterpret_cast<uint32_t*>(dkb + r1 * a.sdk.t + c) =
-          pack_bf16(dk[d][2] * a.scale, dk[d][3] * a.scale);
-      *reinterpret_cast<uint32_t*>(dvb + r1 * a.sdv.t + c) = pack_bf16(dv[d][2], dv[d][3]);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(128) flash_bwd_dq_bf16(BwdArgs a) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kBlockK * kRow];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBlockK * kRow];
-
-  const int T = a.T;
-  const int b = blockIdx.x / a.H;
-  const int h = blockIdx.x % a.H;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-  const int mi = lane >> 3;
-  const int mr = lane & 7;
-  const __nv_bfloat16* qb = at<__nv_bfloat16>(a.q, a.sq, b, h);
-  const __nv_bfloat16* kb = at<__nv_bfloat16>(a.k, a.sk, b, h);
-  const __nv_bfloat16* vb = at<__nv_bfloat16>(a.v, a.sv, b, h);
-  const __nv_bfloat16* dob = at<__nv_bfloat16>(a.dout, a.sdo, b, h);
-  const float* lb = a.lse + static_cast<long long>(blockIdx.x) * T;
-  const float* db = a.delta + static_cast<long long>(blockIdx.x) * T;
-
-  const int r0 = blockIdx.y * kBlockQ + warp * 16 + g;
-  const int r1 = r0 + 8;
-  const bool ok0 = r0 < T;
-  const bool ok1 = r1 < T;
-  uint32_t qf[kHeadDim / 16][4];
-  uint32_t df[kHeadDim / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-    const int c = kk * 16 + tq * 2;
-    qf[kk][0] = ok0 ? load_u32(qb + r0 * a.sq.t + c) : 0u;
-    qf[kk][1] = ok1 ? load_u32(qb + r1 * a.sq.t + c) : 0u;
-    qf[kk][2] = ok0 ? load_u32(qb + r0 * a.sq.t + c + 8) : 0u;
-    qf[kk][3] = ok1 ? load_u32(qb + r1 * a.sq.t + c + 8) : 0u;
-    df[kk][0] = ok0 ? load_u32(dob + r0 * a.sdo.t + c) : 0u;
-    df[kk][1] = ok1 ? load_u32(dob + r1 * a.sdo.t + c) : 0u;
-    df[kk][2] = ok0 ? load_u32(dob + r0 * a.sdo.t + c + 8) : 0u;
-    df[kk][3] = ok1 ? load_u32(dob + r1 * a.sdo.t + c + 8) : 0u;
-  }
-  const float lse2[2] = {ok0 ? lb[r0] * kLog2e : 0.f, ok1 ? lb[r1] * kLog2e : 0.f};
-  const float dl[2] = {ok0 ? db[r0] : 0.f, ok1 ? db[r1] : 0.f};
-
-  float dq[kHeadDim / 8][4];
-#pragma unroll
-  for (int d = 0; d < kHeadDim / 8; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
-
-  for (int k0 = 0; k0 < T; k0 += kBlockK) {
-    stage_rows(ks, kb, a.sk.t, k0, kBlockK, T);
-    stage_rows(vs, vb, a.sv.t, k0, kBlockK, T);
-    __syncthreads();
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int kbase = half * 32;
-      float s[4][4];
-      float dp[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-          const int off = (kbase + n * 8 + g) * kRow + kk * 16 + tq * 2;
-          mma_bf16(s[n], qf[kk], load_u32(ks + off), load_u32(ks + off + 8));
-          mma_bf16(dp[n], df[kk], load_u32(vs + off), load_u32(vs + off + 8));
+      const float* lb = a.lse + static_cast<long long>(bh) * T;
+      const float* db = a.delta + static_cast<long long>(bh) * T;
+      for (int it = 0; it < n_q; ++it) {
+        const int s = it & 1;
+        mbar_wait(&empty[s], ((it >> 1) & 1) ^ 1);
+        const int q0 = it * kBwdTileQ;
+        float* st = stats + s * 2 * kBwdTileQ;
+        for (int i = lane; i < kBwdTileQ; i += 32) {
+          const int q = q0 + i;
+          st[i] = q < T ? lb[q] * kLog2e : INFINITY;  // P = 0 for queries ≥ T
+          st[kBwdTileQ + i] = q < T ? db[q] : 0.f;
+        }
+        if (lane == 0) {
+          unsigned char* qd = sm + kBwdQ + s * kBwdStage;
+          mbar_arrive_tx(&full[s], 4 * kQBoxBytes);
+          tma_load(qd, &mq, &full[s], 0, h, q0, b);
+          tma_load(qd + kQBoxBytes, &mq, &full[s], kBox, h, q0, b);
+          tma_load(qd + 2 * kQBoxBytes, &mdo, &full[s], 0, h, q0, b);
+          tma_load(qd + 3 * kQBoxBytes, &mdo, &full[s], kBox, h, q0, b);
+        } else {
+          mbar_arrive(&full[s]);
         }
       }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int c = threadIdx.x / 128 - 1;  // consumer warpgroup: keys k0 + 64c .. + 63
+    const int lt = threadIdx.x & 127;
+    const int w = lt >> 5;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+    const uint32_t k_rows = smem_u32(sm + kBwdK) + c * 64 * 128;  // K-major A: this group's keys
+    const uint32_t v_rows = smem_u32(sm + kBwdV) + c * 64 * 128;
+    const uint32_t k_cols = smem_u32(sm + kBwdK) + c * kTileBytes;  // MN-major B: hd half c
+    const int key_l0 = c * 64 + w * 16 + g;  // this thread's keys: key_l0 and key_l0 + 8
+    const bool kok0 = k0 + key_l0 < T;
+    const bool kok1 = k0 + key_l0 + 8 < T;
+
+    float dv[64];
+    float dk[64];
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
+    for (int i = 0; i < 64; ++i) dv[i] = dk[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_q; ++it) {
+      const int s = it & 1;
+      mbar_wait(&full[s], (it >> 1) & 1);
+      const uint32_t q_base = smem_u32(sm + kBwdQ + s * kBwdStage);
+      const uint32_t do_base = q_base + 2 * kQBoxBytes;
+      const float* st = stats + s * 2 * kBwdTileQ;
+
+      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: 64 keys × 64 queries, 8 k16 steps over hd
+      float sT[32];
+      float dpT[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+        wgmma_ss_n64<0>(sT, sw128_desc(k_rows + (kk >> 2) * kTileBytes + (kk & 3) * 32, 16, kAtom),
+                        sw128_desc(q_base + (kk >> 2) * kQBoxBytes + (kk & 3) * 32, 16, kAtom), kk);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+        wgmma_ss_n64<0>(dpT, sw128_desc(v_rows + (kk >> 2) * kTileBytes + (kk & 3) * 32, 16, kAtom),
+                        sw128_desc(do_base + (kk >> 2) * kQBoxBytes + (kk & 3) * 32, 16, kAtom), kk);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sT);
+      fence_regs(dpT);
+
+      // Pᵀ = exp(Sᵀ·scale − lse) and dSᵀ = Pᵀ∘(dPᵀ − D) in f32; row = key,
+      // column = query 8·(i / 4) + 2·tq + (i & 1)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int qi = 8 * (i >> 2) + 2 * tq + (i & 1);
+        const bool kok = (i & 2) ? kok1 : kok0;
+        const float p = kok ? exp2f(sT[i] * a.scale_log2 - st[qi]) : 0.f;
+        sT[i] = p;
+        dpT[i] = p * (dpT[i] - st[kBwdTileQ + qi]);
+      }
+      uint32_t pf[4][4];
+      uint32_t sf[4][4];
+      acc_to_a<64>(pf, sT);
+      acc_to_a<64>(sf, dpT);
+
+      // dSᵀ in bf16 into this tile's buffer: row = key (128 bytes = 64
+      // queries), 16-byte chunk q/8 stored at chunk (q/8) ^ (key % 8), the
+      // 128-byte swizzle the dQ product's descriptor reads
+      unsigned char* ds = sm + kBwdDs + (it & 1) * kDsBytes;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int key = k0 + kbase + n * 8 + tq * 2 + (e & 1);
-          const float p = key < T ? exp2f(s[n][e] * a.scale_log2 - lse2[e >> 1]) : 0.f;
-          dp[n][e] = p * (dp[n][e] - dl[e >> 1]);
+          const int key = key_l0 + 8 * (e & 1);
+          const int chunk = 2 * j + (e >> 1);
+          *reinterpret_cast<uint32_t*>(ds + key * 128 + ((chunk ^ (key & 7)) << 4) + tq * 4) =
+              sf[j][e];
         }
       }
-      // dQ += dS·K, 16 keys per step
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        uint32_t sa[4];
-        sa[0] = pack_bf16(dp[2 * j][0], dp[2 * j][1]);
-        sa[1] = pack_bf16(dp[2 * j][2], dp[2 * j][3]);
-        sa[2] = pack_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1]);
-        sa[3] = pack_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3]);
-        const int row = (kbase + j * 16 + mr + (mi & 1) * 8) * kRow + (mi >> 1) * 8;
-#pragma unroll
-        for (int dn = 0; dn < kHeadDim / 16; ++dn) {
-          uint32_t b0, b1, b2, b3;
-          ldsm_x4_trans(b0, b1, b2, b3, ks + row + dn * 16);
-          mma_bf16(dq[2 * dn], sa, b0, b1);
-          mma_bf16(dq[2 * dn + 1], sa, b2, b3);
-        }
-      }
-    }
-    __syncthreads();
-  }
 
-  __nv_bfloat16* dqb = at_mut<__nv_bfloat16>(a.dq, a.sdq, b, h);
+      // dV += Pᵀ·dO and dK += dSᵀ·Q: A from registers, dO and Q MN-major
+      wgmma_fence();
 #pragma unroll
-  for (int d = 0; d < kHeadDim / 8; ++d) {
-    const int c = d * 8 + tq * 2;
-    if (ok0) {
-      *reinterpret_cast<uint32_t*>(dqb + r0 * a.sdq.t + c) =
-          pack_bf16(dq[d][0] * a.scale, dq[d][1] * a.scale);
+      for (int j = 0; j < kBwdTileQ / 16; ++j) {
+        wgmma_rs_n128(dv, pf[j], sw128_desc(do_base + j * 2 * kAtom, kQBoxBytes, kAtom));
+      }
+#pragma unroll
+      for (int j = 0; j < kBwdTileQ / 16; ++j) {
+        wgmma_rs_n128(dk, sf[j], sw128_desc(q_base + j * 2 * kAtom, kQBoxBytes, kAtom));
+      }
+      wgmma_commit();
+
+      // both consumers' halves of dSᵀ written and visible to the tensor
+      // cores; then dQ partial = dS·K for hd half c over all 128 keys (dS
+      // and K both MN-major)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      const uint32_t ds_base = smem_u32(ds);
+      float dq[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTileK / 16; ++kk) {
+        wgmma_ss_n64<1>(dq, sw128_desc(ds_base + kk * 2 * kAtom, kAtom, kAtom),
+                        sw128_desc(k_cols + kk * 2 * kAtom, kTileBytes, kAtom), kk);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(dq);
+      fence_regs(pf);
+      fence_regs(sf);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+
+      // the partial, through shared memory laid out as the warps hold it
+      // (flash_bwd_dq_convert reads that order), into its 64×64 block of
+      // the f32 accumulator by one bulk reduce-add (the TMA unit adds; the
+      // blocks of the key blocks come in an order that changes from run to
+      // run); the buffer is rewritten once the last reduce has read it
+      float* dq_s = reinterpret_cast<float*>(sm + kBwdDq + c * kDqBytes);
+      if (lt == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          *reinterpret_cast<float2*>(dq_s + ((w * 8 + i) * 2 + half) * 64 + lane * 2) =
+              make_float2(dq[4 * i + 2 * half], dq[4 * i + 2 * half + 1]);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");
+      if (lt == 0) {
+        const float* dst =
+            a.dq_acc + ((static_cast<long long>(bh) * n_q + it) * 2 + c) * (kDqBytes / 4);
+        asm volatile(
+            "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(dst),
+            "r"(smem_u32(dq_s)), "r"(kDqBytes)
+            : "memory");
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
     }
-    if (ok1) {
-      *reinterpret_cast<uint32_t*>(dqb + r1 * a.sdq.t + c) =
-          pack_bf16(dq[d][2] * a.scale, dq[d][3] * a.scale);
+    if (lt == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+
+    const int kr0 = k0 + key_l0;
+    const int kr1 = kr0 + 8;
+    __nv_bfloat16* dkb = a.dk + b * a.sdk.b + h * a.sdk.h;
+    __nv_bfloat16* dvb = a.dv + b * a.sdv.b + h * a.sdv.h;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int col = 8 * i + 2 * tq;
+      if (kok0) {
+        *reinterpret_cast<uint32_t*>(dkb + kr0 * a.sdk.t + col) =
+            pack_bf16(dk[4 * i] * a.scale, dk[4 * i + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(dvb + kr0 * a.sdv.t + col) = pack_bf16(dv[4 * i], dv[4 * i + 1]);
+      }
+      if (kok1) {
+        *reinterpret_cast<uint32_t*>(dkb + kr1 * a.sdk.t + col) =
+            pack_bf16(dk[4 * i + 2] * a.scale, dk[4 * i + 3] * a.scale);
+        *reinterpret_cast<uint32_t*>(dvb + kr1 * a.sdv.t + col) =
+            pack_bf16(dv[4 * i + 2], dv[4 * i + 3]);
+      }
     }
   }
+}
+
+// dq = bf16(scale · accumulator) for t < T, through dq's strides; one
+// thread per 8 values (a 16-byte store). The accumulator holds, per
+// (b·h, 64-query tile, 64-dim half), a block of 64 × 64 f32 in the order of
+// the consumer's m64n64 accumulator: query 16w + 8·half + g and dims 8i ..
+// 8i + 7 of the half sit at ((w·8 + i)·2 + half)·64 + 8g.
+__global__ void __launch_bounds__(256)
+flash_bwd_dq_convert(const float* __restrict__ acc, __nv_bfloat16* __restrict__ dq, int B, int T,
+                     int H, int Tpad, Strides sdq, float scale) {
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<long long>(B) * H * T * (kHeadDim / 8)) return;
+  const int chunk = static_cast<int>(idx % (kHeadDim / 8));
+  const long long row = idx / (kHeadDim / 8);
+  const int t = static_cast<int>(row % T);
+  const int bh = static_cast<int>(row / T);
+  const int r = t % kBwdTileQ;
+  const long long block = (static_cast<long long>(bh) * (Tpad / kBwdTileQ) + t / kBwdTileQ) * 2 +
+                          chunk / 8;
+  const float4* src = reinterpret_cast<const float4*>(
+      acc + block * (kDqBytes / 4) + (((r >> 4) * 8 + chunk % 8) * 2 + ((r >> 3) & 1)) * 64 +
+      (r & 7) * 8);
+  const float4 x = src[0];
+  const float4 y = src[1];
+  const uint4 out = make_uint4(pack_bf16(x.x * scale, x.y * scale), pack_bf16(x.z * scale, x.w * scale),
+                               pack_bf16(y.x * scale, y.y * scale), pack_bf16(y.z * scale, y.w * scale));
+  *reinterpret_cast<uint4*>(dq + (bh / H) * sdq.b + t * sdq.t + (bh % H) * sdq.h + chunk * 8) = out;
 }
 
 // f32: 4 threads per row, thread `sub` holding dims 16·i + 4·sub + {0..3}
@@ -841,6 +1066,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_f32(BwdArgs a) {
   store_row_f32(at_mut<float>(a.dq, a.sdq, b, h) + row * a.sdq.t, dq, a.scale, sub);
 }
 
+// `s`: byte strides (head, time, batch) of the f32 q, k, v, dout, dq, dk, dv
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
                   const void* lse, const void* delta, void* dq, void* dk, void* dv,
                   int T, int H, const long long* s, float scale) {
@@ -855,7 +1081,7 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
   a.dk = dk;
   a.dv = dv;
   Strides* all[7] = {&a.sq, &a.sk, &a.sv, &a.sdo, &a.sdq, &a.sdk, &a.sdv};
-  for (int i = 0; i < 7; ++i) *all[i] = Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
+  for (int i = 0; i < 7; ++i) *all[i] = Strides{s[3 * i + 2] / 4, s[3 * i + 1] / 4, s[3 * i] / 4};
   a.T = T;
   a.H = H;
   a.scale = scale;
@@ -863,86 +1089,144 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
   return a;
 }
 
+// -------------------------------------------------------------- host ---
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (libcuda's), found through the runtime (no libcuda link)
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+  }
+  return fn;
+}
+
+// The 4-D tensor map (hd, H, T, B) of a bf16 (B, T, H, 128) view whose byte
+// strides of H, T and B are s[0..2]; boxes of 64 columns × `rows` rows,
+// 128-byte swizzle, rows ≥ T read as zeros.
+bool encode_map(CUtensorMap* map, const void* ptr, int B, int T, int H, const long long* s,
+                int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kHeadDim), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s[0]), static_cast<cuuint64_t>(s[1]),
+                                 static_cast<cuuint64_t>(s[2])};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kBox), 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// element strides (batch, time, head) from byte strides (head, time, batch)
+Strides elem_strides(const long long* s, int elem) {
+  return Strides{s[2] / elem, s[1] / elem, s[0] / elem};
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. `lse` is
-// null for inference, else an f32 (B, H, T) output. Returns the launch's
-// cudaGetLastError() (0 on success).
-extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
-    int B, int T, int H, int head_dim, long long q_sb, long long q_st,
-    long long q_sh, long long k_sb, long long k_st, long long k_sh,
-    long long v_sb, long long v_st, long long v_sh, float scale,
-    void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. `strides` (host memory): byte strides
+// of the head, time and batch dimensions of q, k, v, in that order (the
+// tensor maps' order). `lse` is null for inference, else an f32 (B, H, T)
+// output. Returns the launch's cudaGetLastError() (0 on success).
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                                   int dtype, int B, int T, int H, int head_dim,
+                                   const long long* strides, float scale, void* stream) {
   if (head_dim != kHeadDim || B <= 0 || T <= 0 || H <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float scale_log2 = scale * kLog2e;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    const dim3 grid(B * H, (T + kBlockQ - 1) / kBlockQ);
+    CUtensorMap mq, mk, mv;
+    if (!encode_map(&mq, q, B, T, H, strides, kTileQ) ||
+        !encode_map(&mk, k, B, T, H, strides + 3, kTileK) ||
+        !encode_map(&mv, v, B, T, H, strides + 6, kTileK)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     auto kernel = lse != nullptr ? flash_fwd_bf16<true> : flash_fwd_bf16<false>;
-    kernel<<<grid, 128, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), T, H, q_sb,
-        q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale_log2);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3((T + kTileQ - 1) / kTileQ, B * H), kThreads, kFwdSmem, st>>>(
+        mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), T, H, scale_log2);
   } else if (dtype == 0) {
+    const Strides sq = elem_strides(strides, 4);
+    const Strides sk = elem_strides(strides + 3, 4);
+    const Strides sv = elem_strides(strides + 6, 4);
     const dim3 grid(B * H, (T + kF32BlockQ - 1) / kF32BlockQ);
     auto kernel = lse != nullptr ? flash_fwd_f32<true> : flash_fwd_f32<false>;
-    kernel<<<grid, 128, 0, s>>>(
+    kernel<<<grid, 128, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o),
-        static_cast<float*>(lse), T, H, q_sb, q_st, q_sh, k_sb, k_st, k_sh,
-        v_sb, v_st, v_sh, scale_log2);
+        static_cast<float*>(lse), T, H, sq.b, sq.t, sq.h, sk.b, sk.t, sk.h,
+        sv.b, sv.t, sv.h, scale_log2);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward's dK/dV kernel. `strides` (host memory): 21 element strides,
-// (batch, time, head) of q, k, v, dout, dq, dk, dv in that order (dq unused
-// here). lse and delta: f32 (B, H, T).
-extern "C" int flash_attention_bwd_dkv(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int dtype, int B,
-    int T, int H, int head_dim, const long long* strides, float scale,
-    void* stream) {
+// The backward: dq, dk, dv from q, k, v, dout, the f32 (B, H, T) lse and
+// delta. `strides` (host memory): byte strides (head, time, batch) of q,
+// k, v, dout, dq, dk, dv in that order. bf16 launches the one-pass kernel
+// into `dq_acc`, a zeroed f32 (B, H, ⌈T/64⌉·64, 128) accumulator, and then
+// the dQ convert; f32 (dq_acc unused) the dK/dV and the dQ kernel.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
+                                   const void* lse, const void* delta, void* dq, void* dk,
+                                   void* dv, void* dq_acc, int dtype, int B, int T, int H,
+                                   int head_dim, const long long* strides, float scale,
+                                   void* stream) {
   if (head_dim != kHeadDim || B <= 0 || T <= 0 || H <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const BwdArgs a = make_args(q, k, v, dout, lse, delta, nullptr, dk, dv, T, H, strides, scale);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+    CUtensorMap mq, mk, mv, mdo;
+    if (!encode_map(&mq, q, B, T, H, strides, kBwdTileQ) ||
+        !encode_map(&mk, k, B, T, H, strides + 3, kTileK) ||
+        !encode_map(&mv, v, B, T, H, strides + 6, kTileK) ||
+        !encode_map(&mdo, dout, B, T, H, strides + 9, kBwdTileQ)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int t_pad = (T + kBwdTileQ - 1) / kBwdTileQ * kBwdTileQ;
+    const BwdBf16Args a{static_cast<const float*>(lse), static_cast<const float*>(delta),
+                        static_cast<float*>(dq_acc), static_cast<__nv_bfloat16*>(dk),
+                        static_cast<__nv_bfloat16*>(dv), elem_strides(strides + 15, 2),
+                        elem_strides(strides + 18, 2), T, H, scale * kLog2e, scale};
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_bf16,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dkv_bf16<<<dim3(B * H, (T + kBlockK - 1) / kBlockK), 128, kBwdSmem, s>>>(a);
+    flash_bwd_bf16<<<dim3((T + kTileK - 1) / kTileK, B * H), kThreads, kBwdSmem, st>>>(mq, mk, mv,
+                                                                                       mdo, a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long n = static_cast<long long>(B) * H * T * (kHeadDim / 8);
+    flash_bwd_dq_convert<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
+        static_cast<const float*>(dq_acc), static_cast<__nv_bfloat16*>(dq), B, T, H, t_pad,
+        elem_strides(strides + 12, 2), scale);
   } else if (dtype == 0) {
-    flash_bwd_dkv_f32<<<dim3(B * H, (T + kF32BlockK - 1) / kF32BlockK), 128, 0, s>>>(a);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The backward's dQ kernel; arguments as flash_attention_bwd_dkv (the dk
-// and dv strides unused here).
-extern "C" int flash_attention_bwd_dq(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int dtype, int B, int T,
-    int H, int head_dim, const long long* strides, float scale, void* stream) {
-  if (head_dim != kHeadDim || B <= 0 || T <= 0 || H <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const BwdArgs a = make_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr, T, H, strides, scale);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    flash_bwd_dq_bf16<<<dim3(B * H, (T + kBlockQ - 1) / kBlockQ), 128, 0, s>>>(a);
-  } else if (dtype == 0) {
-    flash_bwd_dq_f32<<<dim3(B * H, (T + kF32BlockQ - 1) / kF32BlockQ), 128, 0, s>>>(a);
+    const BwdArgs a = make_args(q, k, v, dout, lse, delta, dq, dk, dv, T, H, strides, scale);
+    flash_bwd_dkv_f32<<<dim3(B * H, (T + kF32BlockK - 1) / kF32BlockK), 128, 0, st>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_dq_f32<<<dim3(B * H, (T + kF32BlockQ - 1) / kF32BlockQ), 128, 0, st>>>(a);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

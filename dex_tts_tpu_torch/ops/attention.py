@@ -1,14 +1,14 @@
 """Exact non-causal attention for the DiT: the Hopper kernels
-(`csrc/flash_attention.cu`: the forward, the backward's dK/dV and dQ) and
-their plain PyTorch versions.
+(`csrc/flash_attention.cu`: the forward and the backward) and their plain
+PyTorch versions.
 
 Replaces the TPU kernels reached from dex_tts_tpu/models/dit.py
 MHSA._flash (library Pallas flash attention, forward and, in a train
 step, its _flash_attention_bwd_dkv and _flash_attention_bwd_dq) and
 MHSA._splash. `flash_attention_qkv` is what the DiT calls: with grad
 enabled on CUDA it is a `torch.autograd.Function` whose forward saves the
-f32 log-sum-exp and whose backward launches the two backward kernels; on
-the CPU autograd runs through the plain forward.
+f32 log-sum-exp and whose backward launches the backward; on the CPU
+autograd runs through the plain forward.
 """
 
 from __future__ import annotations
@@ -87,6 +87,21 @@ def _check(q, k, v):
             raise ValueError(f"{name} must be 16-byte aligned in every stride")
 
 
+def tensor_map_layout(x):
+    """The 4-D tensor map the kernel reads a (B, T, H, hd) view through:
+    its dims innermost first, (hd, H, T, B), and the byte strides of the
+    H, T and B dims (the innermost is contiguous). Every entry point passes
+    these byte strides; the f32 kernels divide them back into elements."""
+    b, t, h, hd = x.shape
+    e = x.element_size()
+    return (hd, h, t, b), (x.stride(2) * e, x.stride(1) * e, x.stride(0) * e)
+
+
+def _strides(*tensors):
+    strides = [s for x in tensors for s in tensor_map_layout(x)[1]]
+    return (ctypes.c_longlong * len(strides))(*strides)
+
+
 @functools.cache
 def _kernel():
     from dex_tts_tpu_torch.ops.kernels import load_library
@@ -95,21 +110,16 @@ def _kernel():
     fwd = lib.flash_attention_fwd
     fwd.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-        + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_void_p]
-    )
-    dkv = lib.flash_attention_bwd_dkv
-    dkv.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
         + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     )
-    dq = lib.flash_attention_bwd_dq
-    dq.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    bwd = lib.flash_attention_bwd
+    bwd.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
         + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     )
-    for fn in (fwd, dkv, dq):
+    for fn in (fwd, bwd):
         fn.restype = ctypes.c_int
-    return fwd, dkv, dq
+    return fwd, bwd
 
 
 def _stream(t):
@@ -139,8 +149,7 @@ def flash_attention(q, k, v, scale: float, with_lse: bool = False):
         err = _kernel()[0](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             0 if lse is None else lse.data_ptr(), _DTYPE_CODE[q.dtype], b, t, h, hd,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(scale), _stream(q),
+            _strides(q, k, v), float(scale), _stream(q),
         )
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
@@ -151,14 +160,10 @@ def flash_attention(q, k, v, scale: float, with_lse: bool = False):
 flash_attention.launches = 0
 
 
-def _bwd_strides(q, k, v, do, dq, dk, dv):
-    strides = [s for a in (q, k, v, do, dq, dk, dv) for s in a.stride()[:3]]
-    return (ctypes.c_longlong * 21)(*strides)
-
-
-def _check_bwd(q, k, v, do, lse, delta, outs):
+def _check_bwd(q, k, v, do, lse, delta, dq, dk, dv):
     _check(q, k, v)
-    _check(do, outs[0], outs[-1])
+    _check(do, dq, dk)
+    _check(do, dq, dv)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"do must be q's shape and dtype, got {do.shape} {do.dtype}")
     b, t, h, _ = q.shape
@@ -167,54 +172,42 @@ def _check_bwd(q, k, v, do, lse, delta, outs):
             raise ValueError(f"{name} must be a contiguous f32 (B, H, T) tensor")
 
 
-def flash_attention_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale: float):
-    """The backward's dK/dV kernel: writes dk = scale·dSᵀ·Q and dv = Pᵀ·dO
-    into ``dk``, ``dv`` (B, T, H, 128 views, q's dtype). lse and delta f32
-    (B, H, T). CUDA tensors only: the plain version is
+def flash_attention_bwd(q, k, v, do, lse, delta, dq, dk, dv, scale: float):
+    """The backward: writes dq = scale·dS·K, dk = scale·dSᵀ·Q and dv =
+    Pᵀ·dO into ``dq``, ``dk``, ``dv`` ((B, T, H, 128) views of q's dtype).
+    lse and delta f32 (B, H, T). bf16 launches the one-pass kernel, which
+    sums dQ over 128-key blocks into a zeroed f32 accumulator by bulk
+    reduce-adds (in an order that changes from run to run), and its
+    convert kernel; f32 the dK/dV and dQ kernels. One call counts one
+    launch. CUDA tensors only: the plain version is
     `attention_bwd_reference`."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd_dkv is a CUDA kernel, got {q.device}")
-    _check_bwd(q, k, v, do, lse, delta, (dk, dv))
+        raise ValueError(f"flash_attention_bwd is a CUDA kernel, got {q.device}")
+    _check_bwd(q, k, v, do, lse, delta, dq, dk, dv)
     b, t, h, hd = q.shape
+    acc = None
+    if q.dtype == torch.bfloat16:
+        t_pad = -(-t // 64) * 64
+        acc = torch.zeros((b, h, t_pad, hd), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _kernel()[1](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, t, h,
-            hd, _bwd_strides(q, k, v, do, dk, dk, dv), float(scale), _stream(q),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            0 if acc is None else acc.data_ptr(), _DTYPE_CODE[q.dtype], b, t, h, hd,
+            _strides(q, k, v, do, dq, dk, dv), float(scale), _stream(q),
         )
     if err:
-        raise RuntimeError(f"flash_attention_bwd_dkv launch failed: CUDA error {err}")
-    flash_attention_bwd_dkv.launches += 1
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {err}")
+    flash_attention_bwd.launches += 1
 
 
-flash_attention_bwd_dkv.launches = 0
-
-
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, dq, scale: float):
-    """The backward's dQ kernel: writes dq = scale·dS·K into ``dq`` (a
-    (B, T, H, 128) view, q's dtype). CUDA tensors only."""
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd_dq is a CUDA kernel, got {q.device}")
-    _check_bwd(q, k, v, do, lse, delta, (dq,))
-    b, t, h, hd = q.shape
-    with torch.cuda.device(q.device):
-        err = _kernel()[2](
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), _DTYPE_CODE[q.dtype], b, t, h, hd,
-            _bwd_strides(q, k, v, do, dq, dq, dq), float(scale), _stream(q),
-        )
-    if err:
-        raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA error {err}")
-    flash_attention_bwd_dq.launches += 1
-
-
-flash_attention_bwd_dq.launches = 0
+flash_attention_bwd.launches = 0
 
 
 class FlashAttentionQKV(torch.autograd.Function):
     """Differentiable K1 on the DiT's one (B, T, 3, H, hd) projection: the
     forward kernel with its log-sum-exp, saving qkv, o and the f32 lse; the
-    backward launches the dK/dV and dQ kernels, which write into one
+    backward launches `flash_attention_bwd`, which writes into one
     (B, T, 3, H, hd) gradient buffer."""
 
     @staticmethod
@@ -230,9 +223,8 @@ class FlashAttentionQKV(torch.autograd.Function):
         do = do.to(qkv.dtype).contiguous()
         delta = attention_delta(out, do)
         dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        flash_attention_bwd_dkv(q, k, v, do, lse, delta, dqkv[:, :, 1], dqkv[:, :, 2], ctx.scale)
-        flash_attention_bwd_dq(q, k, v, do, lse, delta, dqkv[:, :, 0], ctx.scale)
+        flash_attention_bwd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], do, lse, delta,
+                            dqkv[:, :, 0], dqkv[:, :, 1], dqkv[:, :, 2], ctx.scale)
         return dqkv, None
 
 

@@ -11,7 +11,11 @@ torch = pytest.importorskip("torch")
 
 from dex_tts_tpu.models import dit as jdit  # noqa: E402
 from dex_tts_tpu_torch.models import dit as pdit  # noqa: E402
-from dex_tts_tpu_torch.ops.attention import attention_reference, flash_attention  # noqa: E402
+from dex_tts_tpu_torch.ops.attention import (  # noqa: E402
+    attention_reference,
+    flash_attention,
+    tensor_map_layout,
+)
 from tests.torch_port_util import t  # noqa: E402
 
 
@@ -103,3 +107,32 @@ def test_kernel_input_checks_reject_what_the_kernel_cannot_take():
         _check(odd, odd, odd)
     with pytest.raises(ValueError, match="alike"):
         _check(q, k[:, :39], v)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", [1, 63, 777, 880])
+def test_tensor_map_layout_addresses_qkv_views(T, dtype):
+    """The tensor maps' dims (hd, H, T, B) and byte strides (H, T, B) of
+    the DiT's qkv[:, :, i] views, and of a contiguous (B, T, H, hd) dO,
+    address every element where the tensor holds it."""
+    b, h, hd = 2, 2, 128
+    qkv = torch.zeros((b, T, 3, h, hd), dtype=dtype)
+    e = qkv.element_size()
+    rng = np.random.default_rng(T)
+    idx = [tuple(int(rng.integers(n)) for n in (b, T, h, hd)) for _ in range(32)]
+    idx += [(b - 1, T - 1, h - 1, hd - 1), (0, 0, 0, 0)]
+    for i in range(3):
+        view = qkv[:, :, i]
+        dims, strides = tensor_map_layout(view)
+        assert dims == (hd, h, T, b)
+        assert all(s % 16 == 0 for s in strides)  # TMA's rule for global strides
+        assert strides == (hd * e, 3 * h * hd * e, T * 3 * h * hd * e)
+        for bi, ti, hi, di in idx:
+            got = view.data_ptr() + di * e + hi * strides[0] + ti * strides[1] + bi * strides[2]
+            flat = (((bi * T + ti) * 3 + i) * h + hi) * hd + di
+            assert got == qkv.data_ptr() + flat * e
+        # the f32 kernels take the same strides back in elements (batch, time, head)
+        assert tuple(s // e for s in reversed(strides)) == view.stride()[:3]
+    do = torch.zeros((b, T, h, hd), dtype=dtype)
+    dims, strides = tensor_map_layout(do)
+    assert dims == (hd, h, T, b) and strides == (hd * e, h * hd * e, T * h * hd * e)

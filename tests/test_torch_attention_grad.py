@@ -1,9 +1,10 @@
-"""The attention backward: the plain version beside the K1 backward kernels
+"""The attention backward: the plain version beside the K1 backward
 (`attention_bwd_reference`, from the saved f32 log-sum-exp) against
 autograd of the plain forward and against `jax.vjp` of the JAX package's
 einsum attention (dex_tts_tpu/models/dit.py:356-362), the branch its
-flash route falls back to off the TPU. The kernels themselves run on the
-card only (`chip_smoke.py`); here their wrappers must refuse CPU tensors."""
+flash route falls back to off the TPU, also with dQ summed in the bf16
+kernel's order. The kernels themselves run on the card only
+(`chip_smoke.py`); here their wrapper must refuse CPU tensors."""
 
 import jax
 import jax.numpy as jnp
@@ -105,13 +106,50 @@ def test_qkv_entry_differentiates_on_cpu():
         torch.testing.assert_close(leaf.grad[:, :, i], want[i], atol=1e-5, rtol=1e-5)
 
 
-def test_backward_kernels_refuse_cpu_tensors():
+def _blockwise_dq(q, k, v, out, lse, do, scale, block=128):
+    """dQ as the bf16 kernel sums it: dS rounded to q's dtype, one f32
+    partial dS·K per 128-key block added in turn into an f32 accumulator,
+    then scaled and rounded once."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    p = torch.exp(torch.einsum("bthd,bshd->bhts", qf, kf) * scale - lse[..., None])
+    dp = torch.einsum("bthd,bshd->bhts", dof, vf)
+    ds = (p * (dp - att.attention_delta(out, do)[..., None])).to(q.dtype).float()
+    acc = torch.zeros(qf.shape)
+    for s0 in range(0, q.shape[1], block):
+        acc += torch.einsum("bhts,bshd->bthd", ds[..., s0:s0 + block], kf[:, s0:s0 + block])
+    return (acc * scale).to(q.dtype)
+
+
+# several 128-key blocks, the last one ragged; the bound is the bf16 one
+# of test_plain_backward_matches_jax_vjp (the kernel's dQ atomics add the
+# blocks in an order that changes from run to run: any order of these f32
+# sums stays inside it)
+@pytest.mark.parametrize("shape", [(2, 130, 2, 16), (1, 300, 1, 32), (2, 257, 1, 16)])
+def test_blockwise_dq_matches_jax_vjp(shape):
+    qkv, do = _inputs(shape, seed=200 + shape[1])
+    jq, jk, jv = (jnp.asarray(qkv[:, :, i]).astype(jnp.bfloat16) for i in range(3))
+    _, vjp = jax.vjp(lambda q, k, v: jax_einsum_attention(q, k, v, jnp.bfloat16), jq, jk, jv)
+    want = [np.asarray(g, np.float32) for g in vjp(jnp.asarray(do).astype(jnp.bfloat16))]
+    q, k, v = (t(qkv[:, :, i]).to(torch.bfloat16) for i in range(3))
+    tdo = t(do).to(torch.bfloat16)
+    scale = shape[-1] ** -0.5
+    out, lse = att.flash_attention(q, k, v, scale, with_lse=True)
+    dq = _blockwise_dq(q, k, v, out, lse, tdo, scale)
+    _, dk, dv = att.attention_bwd_reference(q, k, v, out, lse, tdo, scale)
+    for g, w, b in zip((dq, dk, dv), want, _bound(want, 2e-2)):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), w, atol=b, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_refuse_cpu_tensors(dtype):
     qkv, do = _inputs((1, 4, 1, 128), seed=5)
-    q, k, v = (t(qkv[:, :, i]) for i in range(3))
+    q, k, v = (t(qkv[:, :, i]).to(dtype) for i in range(3))
     out, lse = att.flash_attention(q, k, v, 0.1, with_lse=True)
-    delta = att.attention_delta(out, t(do))
-    grads = torch.empty_like(t(qkv))
+    delta = att.attention_delta(out, t(do).to(dtype))
+    grads = torch.empty_like(t(qkv).to(dtype))
+    before = att.flash_attention_bwd.launches
     with pytest.raises(ValueError, match="CUDA kernel"):
-        att.flash_attention_bwd_dkv(q, k, v, t(do), lse, delta, grads[:, :, 1], grads[:, :, 2], 0.1)
-    with pytest.raises(ValueError, match="CUDA kernel"):
-        att.flash_attention_bwd_dq(q, k, v, t(do), lse, delta, grads[:, :, 0], 0.1)
+        att.flash_attention_bwd(q, k, v, t(do).to(dtype), lse, delta, grads[:, :, 0],
+                                grads[:, :, 1], grads[:, :, 2], 0.1)
+    assert att.flash_attention_bwd.launches == before
