@@ -13,7 +13,11 @@ Phases (each asserts; any failure exits non-zero):
      anti-aliased snake in bf16 (polynomial sin², the TPU's fold kernel)
      and f32 (exact sine, the TPU's tiled kernel) at BigVGAN's six stage
      shapes of request 1, at ragged T and C, at k = 8 and 16, and on a
-     contiguous (B, T, C) input;
+     contiguous (B, T, C) input; the library yardstick pinned to the SDPA
+     backend the default dispatch picks, with its error against the plain
+     version; f32 bounds at the faster of FMA and 3xTF32;
+  2a. the f32 route: a bf16 MHSA under attention "flash" launches the f32
+     forward, as the JAX package runs "flash" in f32;
   3. run a small-depth DeX (full widths, every parameter perturbed,
      attention "flash", ≥ 768 DiT tokens) once on the CPU (plain version)
      and once on the card (kernel), f32 with TF32 off, same noise; a CPU
@@ -63,8 +67,11 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM data-sheet peaks (dense)
+# H100 SXM data-sheet peaks (dense); f32 is FMA on the CUDA cores
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the tensor cores in TF32; a product at f32 accuracy takes three of them
+# (3xTF32), so f32 work on them runs at a third of this rate
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 MAIN_SHAPE = (16, 3840, 2, 128)  # (B, T, H, hd): 16 × 768 frames, 20 × 192 patches
 TRAIN_ATTN_SHAPE = (32, 880, 2, 128)  # the ESD train step: 32 × 172-frame crops, 20 × 44 patches
@@ -189,13 +196,48 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(b, t, h, hd, dtype) -> tuple[float, str]:
-    """Least time for exact attention: each of q, k, v read once, o
-    written once, against 4·B·H·T²·hd operations at the type's peak."""
+def roofline_ms(n_bytes, ops, dtype) -> tuple[float, str, str]:
+    """Least time for matrix products of ``ops`` operations in ``dtype``
+    over ``n_bytes`` moved: (bound ms, "bytes" or "operations", the rate
+    of the operations: bf16 on the tensor cores; f32 the faster of FMA on
+    the CUDA cores and 3xTF32 on the tensor cores)."""
+    t_bytes = n_bytes / PEAK_BYTES
+    if dtype != torch.float32:
+        t_ops, rate = ops / PEAK_FLOPS[dtype], "bf16 tensor cores"
+    elif 3 * ops / PEAK_TF32_FLOPS < ops / PEAK_FLOPS[torch.float32]:
+        t_ops, rate = 3 * ops / PEAK_TF32_FLOPS, "3xTF32 tensor cores"
+    else:
+        t_ops, rate = ops / PEAK_FLOPS[torch.float32], "f32 FMA"
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), rate
+
+
+def attention_bound_ms(b, t, h, hd, dtype, lse=False) -> tuple[float, str, str]:
+    """Least time for exact attention: each of q, k, v read once, o (and
+    with ``lse`` the f32 log-sum-exp) written once, against 4·B·H·T²·hd
+    operations."""
     elem = torch.tensor([], dtype=dtype).element_size()
-    t_bytes = 4 * b * t * h * hd * elem / PEAK_BYTES
-    t_ops = 4 * b * h * t * t * hd / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    n_bytes = 4 * b * t * h * hd * elem + (4 * b * h * t if lse else 0)
+    return roofline_ms(n_bytes, 4 * b * h * t * t * hd, dtype)
+
+
+def sdpa_backend(qt, kt, vt, scale):
+    """The `SDPBackend` that SDPA's default dispatch picks for these
+    (B, H, T, hd) inputs (and their requires_grad): the one whose pinned
+    output equals the default call's bit for bit."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    want = sdpa(qt, kt, vt, scale=scale)
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                got = sdpa(qt, kt, vt, scale=scale)
+        except RuntimeError:  # the backend does not take these inputs
+            continue
+        if torch.equal(got, want):
+            return backend
+    raise RuntimeError("no SDPA backend reproduces the default dispatch")
 
 
 def qkv_views(b, t, h, hd, dtype, seed):
@@ -208,6 +250,8 @@ def qkv_views(b, t, h, hd, dtype, seed):
 
 def phase_kernels():
     """Kernel vs plain version on the card; returns the per-type report."""
+    from torch.nn.attention import sdpa_kernel
+
     from dex_tts_tpu_torch.ops.attention import attention_reference, flash_attention
 
     report = {}
@@ -230,35 +274,82 @@ def phase_kernels():
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
         ms = time_ms(lambda: flash_attention(q, k, v, scale), 20)
         plain_ms = time_ms(lambda: attention_reference(q, k, v, scale, dtype), 5)
-        library_ms = time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=scale), 20
-        )
-        bound_ms, bound_by = attention_bound_ms(*MAIN_SHAPE, dtype)
+        # the library yardstick, pinned to the backend the default dispatch
+        # picks, and its error against the plain version
+        backend = sdpa_backend(qt, kt, vt, scale)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        with sdpa_kernel(backend):
+            library_ms = time_ms(lambda: sdpa(qt, kt, vt, scale=scale), 20)
+            sdpa_out = sdpa(qt, kt, vt, scale=scale).transpose(1, 2)
+        want = attention_reference(q, k, v, scale, dtype)
+        sdpa_err = (sdpa_out.float() - want.float()).abs().max().item()
+        del sdpa_out, want
+        bound_ms, bound_by, rate = attention_bound_ms(*MAIN_SHAPE, dtype)
         report[dtype] = dict(max_abs_err=worst, tolerance=tol_name, ms=ms, plain_ms=plain_ms,
-                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                             library_ms=library_ms, library_backend=backend.name,
+                             library_max_abs_err=sdpa_err, bound_ms=bound_ms, bound_by=bound_by,
+                             bound_rate=rate, bound_share=bound_ms / ms)
         log(f"flash_attention {dtype} at {MAIN_SHAPE}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-            f" sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f" sdpa ({backend.name}) {library_ms:.4f} ms with max_abs_err {sdpa_err:.3e} against the"
+            f" plain version, bound {bound_ms:.4f} ms ({bound_by}, {rate}); the kernel reaches"
+            f" {100 * bound_ms / ms:.1f}% of the bound")
     return report
 
 
-def attention_bwd_bound_ms(b, t, h, hd, dtype) -> tuple[float, str]:
+def phase_route():
+    """A bf16 DiT under attention "flash" runs the f32 kernel, as the JAX
+    package runs "flash" in f32 whatever the compute dtype
+    (dex_tts_tpu/models/dit.py:421): one bf16 MHSA at the DiT's width
+    (256 wide, 2 heads of 128) over 880 tokens launches the f32 forward
+    once and the bf16 one never, and its output agrees with the same MHSA
+    computing the plain attention in f32, cast to bf16, within 2e-2 ×
+    max|out|. → (launches by dtype, max_abs_err)."""
+    from dex_tts_tpu_torch.models.dit import MHSA, DiTConfig
+    from dex_tts_tpu_torch.models.layers import run_in
+    from dex_tts_tpu_torch.ops.attention import attention_reference, flash_attention
+
+    b, t, d, h = 2, 880, 256, 2
+    torch.manual_seed(31)
+    mhsa = MHSA(DiTConfig(hidden_size=d, num_heads=h, dtype="bfloat16", attention="flash")).cuda()
+    g = torch.Generator(device="cuda").manual_seed(32)
+    x = torch.randn((b, t, d), generator=g, device="cuda")
+    flash_attention.launches = 0
+    flash_attention.launches_by_dtype = dict.fromkeys(flash_attention.launches_by_dtype, 0)
+    with torch.no_grad():
+        got = mhsa(x)
+        torch.cuda.synchronize()
+        launches = {str(k).removeprefix("torch."): n
+                    for k, n in flash_attention.launches_by_dtype.items()}
+        qkv = run_in(mhsa.qkv, x, torch.bfloat16).reshape(b, t, 3, h, d // h).float()
+        att = attention_reference(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], (d // h) ** -0.5)
+        want = run_in(mhsa.proj, att.to(torch.bfloat16).reshape(b, t, d), torch.bfloat16)
+    err = (got.float() - want.float()).abs().max().item()
+    bound = 2e-2 * want.float().abs().max().item()
+    log(f"route: bf16 MHSA under attention flash ({b}, {t}, {d}): launches {launches}, out"
+        f" {got.dtype}, max_abs_err {err:.3e} against the plain f32 attention cast to bf16"
+        f" (bound {bound:.3e})")
+    assert got.dtype == torch.bfloat16 and got.shape == (b, t, d)
+    assert launches == {"float32": 1, "bfloat16": 0}, launches
+    assert math.isfinite(err) and err <= bound, (err, bound)
+    return dict(launches_by_dtype=launches, max_abs_err=err)
+
+
+def attention_bwd_bound_ms(b, t, h, hd, dtype) -> tuple[float, str, str]:
     """Least time for the attention backward: q, k, v, o, dO read once,
     dq, dk, dv written once (plus the f32 lse and D), against 10·B·H·T²·hd
-    operations (S and dP recomputed, dV, dK, dQ) at the type's peak."""
+    operations (S and dP recomputed, dV, dK, dQ)."""
     elem = torch.tensor([], dtype=dtype).element_size()
-    t_bytes = (8 * b * t * h * hd * elem + 2 * 4 * b * h * t) / PEAK_BYTES
-    t_ops = 10 * b * h * t * t * hd / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    n_bytes = 8 * b * t * h * hd * elem + 2 * 4 * b * h * t
+    return roofline_ms(n_bytes, 10 * b * h * t * t * hd, dtype)
 
 
-def attention_fwd_bwd_bound_ms(b, t, h, hd, dtype) -> tuple[float, str]:
+def attention_fwd_bwd_bound_ms(b, t, h, hd, dtype) -> tuple[float, str, str]:
     """Least time for forward + backward: q, k, v, dO read and o, dq, dk,
     dv written once each (the forward's o and lse read back counted as
-    well), against 14·B·H·T²·hd operations at the type's peak."""
+    well), against 14·B·H·T²·hd operations."""
     elem = torch.tensor([], dtype=dtype).element_size()
-    t_bytes = (9 * b * t * h * hd * elem + 3 * 4 * b * h * t) / PEAK_BYTES
-    t_ops = 14 * b * h * t * t * hd / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    n_bytes = 9 * b * t * h * hd * elem + 3 * 4 * b * h * t
+    return roofline_ms(n_bytes, 14 * b * h * t * t * hd, dtype)
 
 
 def phase_attention_backward():
@@ -273,6 +364,8 @@ def phase_attention_backward():
     the worst of o, dq, dk and dv. Then backward and forward + backward
     times at the train shape against the plain versions and SDPA (forward
     alone, backward alone, forward + backward). → per-type report."""
+    from torch.nn.attention import sdpa_kernel
+
     from dex_tts_tpu_torch.ops.attention import (
         FlashAttentionQKV,
         attention_bwd_reference,
@@ -353,34 +446,44 @@ def phase_attention_backward():
             q, k, v, *attention_reference_lse(q, k, v, scale), do, scale), 3)
         qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_(True) for a in (q, k, v))
         dot = do.transpose(1, 2)
-        library_ms = time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=scale)
-            .backward(dot), 10)
-        # SDPA's forward alone on inputs that require grad (it keeps its
-        # log-sum-exp, as a train step's forward does), and its backward
-        # alone on one retained graph
-        library_fwd_ms = time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=scale), 20)
-        sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=scale)
-        library_bwd_ms = time_ms(
-            lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True), 20)
-        del sdpa_out
-        bound_ms, bound_by = attention_bwd_bound_ms(*TRAIN_ATTN_SHAPE, dtype)
-        fb_bound_ms, fb_bound_by = attention_fwd_bwd_bound_ms(*TRAIN_ATTN_SHAPE, dtype)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        # SDPA pinned to the backend its default dispatch picks for inputs
+        # that require grad: forward + backward; its forward alone (it keeps
+        # its log-sum-exp, as a train step's forward does) and that
+        # forward's error against the plain version; its backward alone on
+        # one retained graph
+        backend = sdpa_backend(qt, kt, vt, scale)
+        with sdpa_kernel(backend):
+            library_ms = time_ms(lambda: sdpa(qt, kt, vt, scale=scale).backward(dot), 10)
+            library_fwd_ms = time_ms(lambda: sdpa(qt, kt, vt, scale=scale), 20)
+            sdpa_out = sdpa(qt, kt, vt, scale=scale)
+            library_bwd_ms = time_ms(
+                lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True), 20)
+        want_out = attention_reference_lse(q, k, v, scale)[0]
+        sdpa_err = (sdpa_out.detach().transpose(1, 2).float() - want_out.float()).abs().max().item()
+        del sdpa_out, want_out
+        bound_ms, bound_by, rate = attention_bwd_bound_ms(*TRAIN_ATTN_SHAPE, dtype)
+        fb_bound_ms, fb_bound_by, _ = attention_fwd_bwd_bound_ms(*TRAIN_ATTN_SHAPE, dtype)
+        fl_bound_ms, fl_bound_by, _ = attention_bound_ms(*TRAIN_ATTN_SHAPE, dtype, lse=True)
         report[dtype] = dict(max_abs_err=worst, max_lse_err=worst_lse,
                              tolerance=f"o: {fwd_tol}; grads: {rel} x max(max|grad|, max|dv| / 10)",
-                             fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms,
+                             fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms, fwd_lse_bound_ms=fl_bound_ms,
+                             fwd_lse_bound_by=fl_bound_by,
                              library_fwd_lse_shape_ms=library_fwd_ms,
+                             library_fwd_max_abs_err=sdpa_err, library_backend=backend.name,
                              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             bound_rate=rate,
                              library_bwd_ms=library_bwd_ms, fwd_bwd_ms=fwd_bwd_ms,
                              plain_fwd_bwd_ms=plain_fwd_bwd_ms, fwd_bwd_bound_ms=fb_bound_ms,
                              fwd_bwd_bound_by=fb_bound_by, library_ms=library_ms)
         log(f"flash forward {dtype} at {TRAIN_ATTN_SHAPE}: {fwd_ms:.4f} ms, with log-sum-exp"
-            f" {fwd_lse_ms:.4f} ms; sdpa forward {library_fwd_ms:.4f} ms")
+            f" {fwd_lse_ms:.4f} ms (bound {fl_bound_ms:.4f} ms, {fl_bound_by}, {rate}); sdpa"
+            f" ({backend.name}) forward {library_fwd_ms:.4f} ms with max_abs_err {sdpa_err:.3e} against"
+            f" the plain version")
         log(f"flash backward {dtype} at {TRAIN_ATTN_SHAPE}: {ms:.4f} ms, plain bwd"
             f" {plain_ms:.4f} ms, sdpa bwd {library_bwd_ms:.4f} ms, bound {bound_ms:.4f} ms"
-            f" ({bound_by}); fwd+bwd {fwd_bwd_ms:.4f} ms, plain {plain_fwd_bwd_ms:.4f} ms, sdpa"
-            f" {library_ms:.4f} ms, bound {fb_bound_ms:.4f} ms ({fb_bound_by})")
+            f" ({bound_by}, {rate}); fwd+bwd {fwd_bwd_ms:.4f} ms, plain {plain_fwd_bwd_ms:.4f} ms,"
+            f" sdpa {library_ms:.4f} ms, bound {fb_bound_ms:.4f} ms ({fb_bound_by})")
         del qkv, do, out, dqkv, leaf, qt, kt, vt
     return report
 
@@ -1022,7 +1125,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     import tempfile
 
-    from dex_tts_tpu_torch.ops.kernels import build_all, resource_usage
+    from dex_tts_tpu_torch.ops.kernels import build_all, load_library, resource_usage
 
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1032,8 +1135,14 @@ def main():
     for source in sorted(built):
         for line in resource_usage(source):
             log(f"ptxas {source} {line}")
+    fwd_f32_build = [line for line in resource_usage("flash_attention.cu")
+                     if any(n in line.split(":")[0] for n in ("flash_fwd_f32", "flash_split_kv_f32"))]
+    smem = load_library("flash_attention.cu").flash_attention_fwd_smem(0)
+    for line in fwd_f32_build:
+        log(f"f32 forward (3xTF32) build: {line}; dynamic shared memory {smem} bytes")
 
     report = phase_kernels()
+    route = phase_route()
     snake = phase_snake()
     mas, mas_err = phase_mas()
     bwd = phase_attention_backward()
@@ -1075,7 +1184,15 @@ def main():
         "shape": list(MAIN_SHAPE),
         "dtype": "bfloat16",
         "max_abs_err_f32": f32["max_abs_err"],
-        "f32": {k: f32[k] for k in timing_keys},
+        "bound_rate": bf16["bound_rate"],
+        "library_backend": bf16["library_backend"],
+        "library_max_abs_err": bf16["library_max_abs_err"],
+        "f32": {**{k: f32[k] for k in timing_keys},
+                **{k: f32[k] for k in ("bound_rate", "bound_share", "library_backend",
+                                       "library_max_abs_err")},
+                "build": fwd_f32_build, "dynamic_smem_bytes": smem},
+        # a bf16 DiT under attention "flash" (phase_route)
+        "f32_route": route,
         "card": card,
     }, {
         "name": "flash_attention_bwd",

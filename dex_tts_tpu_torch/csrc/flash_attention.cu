@@ -42,8 +42,24 @@
 //   * with a non-null `lse` (training) each query's natural-log
 //     log-sum-exp of the scaled scores goes to lse[b, h, t] (f32); that is
 //     a second instantiation, so inference carries no log-sum-exp code.
-// The f32 variant is plain FMA on the CUDA cores (no TF32): 4 threads per
-// query, each holding 32 of the 128 dims.
+// f32 forward (flash_fwd_f32, the same two instantiations): on the tensor
+// cores by mma.sync m16n8k8 in TF32, each product taken three times over
+// operands split into a TF32 big and small part ("3xTF32": a_small·b_big +
+// a_big·b_small + a_big·b_big into f32 accumulators), which keeps f32
+// accuracy: o errs ~1e-5 where one TF32 product per product errs ~1e-4.
+// Bound at (16, 3840, 2, 128): 3 × 2.42e11 TF32 operations → 1.46 ms at
+// 495 TFLOP/s, below the 3.6 ms of f32 FMA on the CUDA cores. A pre-pass
+// (flash_split_kv_f32) splits K and V once per call into big and small
+// halves in scratch (K as it is, V transposed into the order the P·V
+// fragments read), which every query tile of a (b, h) then reads, so no
+// warp splits K or V itself. The main kernel runs one CTA of 8 warps per
+// (128-query tile, b·h); each warp holds its 16 queries in registers and
+// splits them per tile; the halves of 32-key tiles come through a 2-stage
+// cp.async ring (168 KB, rows padded against bank conflicts, one barrier
+// per tile), and the warps' B fragments are plain float4 loads. The three
+// products of a k-step run over four accumulators in turn, so neighbouring
+// mma instructions are independent. The online softmax is the bf16
+// kernel's, in f32, and P is split, not rounded.
 //
 // Backward (per (b, h), with D = rowsum(dO∘O) computed outside, as the
 // library computes it in XLA): P = exp(S·scale − lse) recomputed from the
@@ -277,22 +293,25 @@ __device__ __forceinline__ void wgmma_wait_one() {
   asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
-// The online softmax of one 64×128 score tile held as an m64n128
-// accumulator (rows g and g + 8 of each warp's 16): keys ≥ T scored −inf,
-// scores scaled into log2 units, running max and sum updated; the tile
-// becomes P = exp2(s − max) in place. → the factor for the output so far.
-__device__ __forceinline__ void online_softmax(float (&sc)[64], float (&m_run)[2],
+// The online softmax of one score tile of 2N keys held as a warp's rows
+// of an m64n(2N) wgmma or N/4 m16n8 mma accumulators (rows g and g + 8 of
+// the warp's 16; sc[i] is key 8·(i / 4) + 2tq + i % 2): keys ≥ T scored
+// −inf, scores scaled into log2 units, running max and sum updated; the
+// tile becomes P = exp2(s − max) in place. → the factor for the output so
+// far.
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&sc)[N], float (&m_run)[2],
                                                float (&l_run)[2], float (&alpha)[2], int k0,
                                                int T, int tq, float scale_log2) {
-  if (k0 + kTileK > T) {
+  if (k0 + 2 * N > T) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < N; ++i) {
       if (k0 + 8 * (i >> 2) + 2 * tq + (i & 1) >= T) sc[i] = -INFINITY;
     }
   }
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N; ++i) {
     sc[i] *= scale_log2;
     mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
   }
@@ -308,7 +327,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[64], float (&m_run)[2
   }
   float rsum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N; ++i) {
     const float p = exp2f(sc[i] - base[(i >> 1) & 1]);
     sc[i] = p;
     rsum[(i >> 1) & 1] += p;
@@ -486,133 +505,331 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ C
   }
 }
 
-// ----------------------------------------------------------------- f32 ---
+// ----------------------------------------------- f32 forward (3xTF32) ---
 
-constexpr int kF32BlockQ = 32;   // 128 threads, 4 per query
-constexpr int kF32BlockK = 32;
-constexpr int kPer = kHeadDim / 4;  // dims held by each thread
+// Strides of a (B, T, H, hd) view, in elements
+struct Strides {
+  long long b, t, h;
+};
+
+constexpr int kF32Warps = 8;                    // 16 query rows each
+constexpr int kF32Threads = 32 * kF32Warps;
+constexpr int kF32TileQ = 16 * kF32Warps;       // 128 queries per CTA
+constexpr int kF32TileK = 32;                   // keys per tile
+constexpr int kF32Stages = 2;                   // stages of the split K/V ring
+// Split K rows (float4 fragment loads of rows g and g + 1 per quarter-warp)
+// and split Vᵀ rows (the same) in shared memory: pitches of 16 floats mod
+// 32 banks put the two rows in disjoint halves of the banks.
+constexpr int kKRow = kHeadDim + 16;
+constexpr int kVtRow = kF32TileK + 16;
+constexpr int kKFloats = kF32TileK * kKRow;                 // K big or K small
+constexpr int kVtFloats = kHeadDim * kVtRow;                // Vᵀ big or Vᵀ small
+constexpr int kF32StageFloats = 2 * kKFloats + 2 * kVtFloats;  // K big, K small, Vᵀ big, Vᵀ small
+constexpr int kF32Smem = kF32Stages * kF32StageFloats * 4 + 128;  // + alignment slack
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small to ~2^-22 relative: big = tf32(x), small = tf32(x − big)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// d(16×8, f32) += A(16×8)·B(8×8) in TF32 (mma.sync m16n8k8; A's fragment
+// a[0..3] holds A[g][tq], A[g + 8][tq], A[g][tq + 4], A[g + 8][tq + 4], B's
+// (b0, b1) holds B[tq][g], B[tq + 4][g], d[0..3] holds D[g][2tq],
+// D[g][2tq + 1], D[g + 8][2tq], D[g + 8][2tq + 1]; g = lane / 4, tq = lane % 4)
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7},"
+      " {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One 3xTF32 k-step into N accumulators: d_n += A·B_n at f32 accuracy from
+// split operands, the small terms first (small·small, ~2^-22 of the
+// product, is left out). B_n's halves: (x, y) if `hi` is 0, else (z, w).
+// Each term runs over the N accumulators in turn, so neighbouring mma
+// instructions do not wait on each other.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float* const (&d)[N], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4], const uint4 (&b_big)[N],
+                                           const uint4 (&b_small)[N], int hi) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    mma_tf32(d[n], a_small, hi ? b_big[n].z : b_big[n].x, hi ? b_big[n].w : b_big[n].y);
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    mma_tf32(d[n], a_big, hi ? b_small[n].z : b_small[n].x, hi ? b_small[n].w : b_small[n].y);
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    mma_tf32(d[n], a_big, hi ? b_big[n].z : b_big[n].x, hi ? b_big[n].w : b_big[n].y);
+  }
+}
+
+__device__ __forceinline__ uint4 split4(float4 x, uint4& small) {
+  uint4 big;
+  split_tf32(x.x, big.x, small.x);
+  split_tf32(x.y, big.y, small.y);
+  split_tf32(x.z, big.z, small.z);
+  split_tf32(x.w, big.w, small.w);
+  return big;
+}
+
+// The pre-pass: K and V split once into TF32 big and small halves, in four
+// planes of ⌈T/32⌉·32·hd values per (b, h): K big, K small (rows = keys,
+// zero for keys ≥ T), Vᵀ big, Vᵀ small (per 32-key tile a 128 × 32 block,
+// rows = dims, the keys in the order the P·V fragments read them: in each
+// 16-key group keys 2a, 2a + 1, 2a + 8, 2a + 9 at columns 4a .. 4a + 3, so
+// one float4 holds B for two k-steps, see f32_pv). One CTA per (32-key
+// tile, b·h); every query tile of a (b, h) reads these instead of
+// splitting K and V itself.
+__global__ void __launch_bounds__(256)
+flash_split_kv_f32(const float* __restrict__ k, const float* __restrict__ v,
+                   uint32_t* __restrict__ split, int T, int H, int t_pad, Strides sk, Strides sv) {
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kF32TileK;
+  const long long plane = static_cast<long long>(gridDim.y) * t_pad * kHeadDim;
+  uint32_t* k_big = split + (static_cast<long long>(bh) * t_pad + k0) * kHeadDim;
+  uint32_t* vt_big = k_big + 2 * plane;
+  const float* kb = k + (bh / H) * sk.b + (bh % H) * sk.h;
+  const float* vb = v + (bh / H) * sv.b + (bh % H) * sv.h;
+  for (int i = threadIdx.x; i < kF32TileK * (kHeadDim / 4); i += blockDim.x) {
+    // K: neighbouring threads on neighbouring float4s of a row
+    const int r = i / (kHeadDim / 4);
+    const int c = (i % (kHeadDim / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k0 + r < T) x = *reinterpret_cast<const float4*>(kb + (k0 + r) * sk.t + c);
+    uint4 small;
+    const uint4 big = split4(x, small);
+    *reinterpret_cast<uint4*>(k_big + r * kHeadDim + c) = big;
+    *reinterpret_cast<uint4*>(k_big + plane + r * kHeadDim + c) = small;
+    // V: neighbouring threads on neighbouring keys, so the transposed
+    // stores of a row are contiguous
+    const int key = i % kF32TileK;
+    const int cv = (i / kF32TileK) * 4;
+    float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k0 + key < T) y = *reinterpret_cast<const float4*>(vb + (k0 + key) * sv.t + cv);
+    const uint4 vbig = split4(y, small);
+    const int kk = key & 15;
+    const int col = (key & 16) + 4 * ((kk & 7) >> 1) + (kk & 1) + 2 * (kk >> 3);
+    uint32_t* vt = vt_big + cv * kF32TileK + col;
+    vt[0] = vbig.x;
+    vt[kF32TileK] = vbig.y;
+    vt[2 * kF32TileK] = vbig.z;
+    vt[3 * kF32TileK] = vbig.w;
+    vt[plane] = small.x;
+    vt[plane + kF32TileK] = small.y;
+    vt[plane + 2 * kF32TileK] = small.z;
+    vt[plane + 3 * kF32TileK] = small.w;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// One 32-key tile of the split planes into a ring stage, 16 bytes per
+// cp.async: K big and small rows at pitch kKRow, Vᵀ big and small rows at
+// pitch kVtRow. `tile` points at the tile's K big block; `plane` is the
+// distance between planes.
+__device__ __forceinline__ void f32_load_split(uint32_t* stage, const uint32_t* tile,
+                                               long long plane) {
+  const uint32_t* vt = tile + 2 * plane;
+  for (int i = threadIdx.x; i < kF32TileK * (kHeadDim / 4); i += kF32Threads) {
+    const int r = i / (kHeadDim / 4);
+    const int c = (i % (kHeadDim / 4)) * 4;
+    cp_async16(stage + r * kKRow + c, tile + r * kHeadDim + c);
+    cp_async16(stage + kKFloats + r * kKRow + c, tile + plane + r * kHeadDim + c);
+    const int rv = i / (kF32TileK / 4);
+    const int cv = (i % (kF32TileK / 4)) * 4;
+    cp_async16(stage + 2 * kKFloats + rv * kVtRow + cv, vt + rv * kF32TileK + cv);
+    cp_async16(stage + 2 * kKFloats + kVtFloats + rv * kVtRow + cv,
+               vt + plane + rv * kF32TileK + cv);
+  }
+}
+
+// S(16 × 32) = Q·Kᵀ of a warp's 16 queries against the tile's 32 keys,
+// 3xTF32, in the m16n8 accumulator layout: sc[4n + e] is query g + 8·(e / 2),
+// key 8n + 2tq + e % 2. q[m][r][j] = Q[query g + 8r][dim 16m + 4tq + j].
+// The sum over dims is permuted per thread, in A and B alike: k-step (m, h)
+// gives fragment k = tq dim 16m + 4tq + 2h and k = tq + 4 dim 16m + 4tq + 2h
+// + 1, so one float4 of a K row feeds two k-steps.
+__device__ __forceinline__ void f32_scores(float (&sc)[16], const float (&q)[8][2][4],
+                                           const uint32_t* split, int g, int tq) {
+  const uint32_t* k_big = split + g * kKRow + 4 * tq;
+  const uint32_t* k_small = k_big + kKFloats;
+  float* const d[4] = {sc, sc + 4, sc + 8, sc + 12};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) sc[i] = 0.f;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    uint32_t a_big[2][4], a_small[2][4];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      split_tf32(q[m][0][2 * hf], a_big[hf][0], a_small[hf][0]);
+      split_tf32(q[m][1][2 * hf], a_big[hf][1], a_small[hf][1]);
+      split_tf32(q[m][0][2 * hf + 1], a_big[hf][2], a_small[hf][2]);
+      split_tf32(q[m][1][2 * hf + 1], a_big[hf][3], a_small[hf][3]);
+    }
+    uint4 b_big[4], b_small[4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      b_big[n] = *reinterpret_cast<const uint4*>(k_big + 8 * n * kKRow + 16 * m);
+      b_small[n] = *reinterpret_cast<const uint4*>(k_small + 8 * n * kKRow + 16 * m);
+    }
+    mma_3xtf32(d, a_big[0], a_small[0], b_big, b_small, 0);
+    mma_3xtf32(d, a_big[1], a_small[1], b_big, b_small, 1);
+  }
+}
+
+// O(16 × 128) += P·V over the tile's 32 keys, 3xTF32; P is the score tile
+// after the softmax (f32, not rounded). k-step n gives fragment k = tq key
+// 8n + 2tq and k = tq + 4 key 8n + 2tq + 1, so P's accumulator registers
+// are the A fragment as they stand, and the float4 at Vᵀ row 8i + g,
+// column 16j + 4tq holds B of dims 8i .. 8i + 7 for k-steps 2j and 2j + 1.
+// acc[4i + e] is query g + 8·(e / 2), dim 8i + 2tq + e % 2.
+__device__ __forceinline__ void f32_pv(float (&acc)[64], const float (&p)[16],
+                                       const uint32_t* split, int g, int tq) {
+  const uint32_t* vt_big = split + 2 * kKFloats + g * kVtRow + 4 * tq;
+  const uint32_t* vt_small = vt_big + kVtFloats;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    uint32_t a_big[2][4], a_small[2][4];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const float* pn = p + 4 * (2 * j + s);
+      split_tf32(pn[0], a_big[s][0], a_small[s][0]);
+      split_tf32(pn[2], a_big[s][1], a_small[s][1]);
+      split_tf32(pn[1], a_big[s][2], a_small[s][2]);
+      split_tf32(pn[3], a_big[s][3], a_small[s][3]);
+    }
+#pragma unroll
+    for (int i0 = 0; i0 < 16; i0 += 4) {
+      float* const d[4] = {acc + 4 * i0, acc + 4 * i0 + 4, acc + 4 * i0 + 8, acc + 4 * i0 + 12};
+      uint4 b_big[4], b_small[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        b_big[i] = *reinterpret_cast<const uint4*>(vt_big + 8 * (i0 + i) * kVtRow + 16 * j);
+        b_small[i] = *reinterpret_cast<const uint4*>(vt_small + 8 * (i0 + i) * kVtRow + 16 * j);
+      }
+      mma_3xtf32(d, a_big[0], a_small[0], b_big, b_small, 0);
+      mma_3xtf32(d, a_big[1], a_small[1], b_big, b_small, 1);
+    }
+  }
+}
 
 template <bool kLse>
-__global__ void __launch_bounds__(128)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o,
-              float* __restrict__ lse, int T, int H, long long q_sb, long long q_st, long long q_sh,
-              long long k_sb, long long k_st, long long k_sh,
-              long long v_sb, long long v_st, long long v_sh,
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_fwd_f32(const float* __restrict__ q, const uint32_t* __restrict__ split,
+              float* __restrict__ o, float* __restrict__ lse, int T, int H, int t_pad, Strides sq,
               float scale_log2) {
-  __shared__ __align__(16) float ks[kF32BlockK * kHeadDim];
-  __shared__ __align__(16) float vs[kF32BlockK * kHeadDim];
+  extern __shared__ unsigned char smem_raw[];
+  uint32_t* sm = reinterpret_cast<uint32_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 127) &
+                                             ~uintptr_t(127));
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const long long plane = static_cast<long long>(gridDim.y) * t_pad * kHeadDim;
+  const uint32_t* tiles = split + static_cast<long long>(blockIdx.y) * t_pad * kHeadDim;
+  const int n_tiles = t_pad / kF32TileK;
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int sub = threadIdx.x & 3;
-  const int row = blockIdx.y * kF32BlockQ + (threadIdx.x >> 2);
-  const bool ok = row < T;
-  const float* qb = q + b * q_sb + h * q_sh;
-  const float* kb = k + b * k_sb + h * k_sh;
-  const float* vb = v + b * v_sb + h * v_sh;
+  // tile 0 starts loading; one commit group per tile
+  f32_load_split(sm, tiles, plane);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 
-  // thread `sub` holds dims 16·i + 4·sub + {0..3}, i = 0..7: the four
-  // threads of a query read 64 contiguous bytes of a K/V row at a time
-  float qr[kPer];
-  float acc[kPer];
+  // this warp's 16 queries stay in registers (queries ≥ T as zeros)
+  const int r0 = blockIdx.x * kF32TileQ + 16 * w + g;
+  float qr[8][2][4];
 #pragma unroll
-  for (int i = 0; i < kPer / 4; ++i) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (ok) x = *reinterpret_cast<const float4*>(qb + row * q_st + 16 * i + 4 * sub);
-    qr[4 * i] = x.x;
-    qr[4 * i + 1] = x.y;
-    qr[4 * i + 2] = x.z;
-    qr[4 * i + 3] = x.w;
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = r0 + 8 * r < T;
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (ok) x = *reinterpret_cast<const float4*>(qb + (r0 + 8 * r) * sq.t + 16 * m + 4 * tq);
+      qr[m][r][0] = x.x;
+      qr[m][r][1] = x.y;
+      qr[m][r][2] = x.z;
+      qr[m][r][3] = x.w;
+    }
   }
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
-  float m_run = -INFINITY;
-  float l_run = 0.f;
 
-  const int n_tiles = (T + kF32BlockK - 1) / kF32BlockK;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+  float alpha[2];
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kF32BlockK;
-    for (int i = threadIdx.x; i < kF32BlockK * (kHeadDim / 4); i += blockDim.x) {
-      const int r = i / (kHeadDim / 4);
-      const int c = (i % (kHeadDim / 4)) * 4;
-      const int key = k0 + r;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vx = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (key < T) {
-        kx = *reinterpret_cast<const float4*>(kb + key * k_st + c);
-        vx = *reinterpret_cast<const float4*>(vb + key * v_st + c);
-      }
-      *reinterpret_cast<float4*>(ks + r * kHeadDim + c) = kx;
-      *reinterpret_cast<float4*>(vs + r * kHeadDim + c) = vx;
-    }
+    // tile kt has landed, and every warp is done with tile kt − 1, whose
+    // stage now takes the load of tile kt + 1
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
+    if (kt + 1 < n_tiles) {
+      f32_load_split(sm + ((kt + 1) % kF32Stages) * kF32StageFloats,
+                     tiles + (kt + 1) * kF32TileK * kHeadDim, plane);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
 
-    float sc[kF32BlockK];
-    float mx = -INFINITY;
+    // Q's splits are the same for every tile; kept out of registers, they
+    // are redone per tile (the compiler would hoist them: 128 registers)
 #pragma unroll
-    for (int j = 0; j < kF32BlockK; ++j) {
-      float dot = 0.f;
+    for (int m = 0; m < 8; ++m) {
 #pragma unroll
-      for (int i = 0; i < kPer / 4; ++i) {
-        const float4 kx =
-            *reinterpret_cast<const float4*>(ks + j * kHeadDim + 16 * i + 4 * sub);
-        dot = fmaf(qr[4 * i], kx.x, dot);
-        dot = fmaf(qr[4 * i + 1], kx.y, dot);
-        dot = fmaf(qr[4 * i + 2], kx.z, dot);
-        dot = fmaf(qr[4 * i + 3], kx.w, dot);
-      }
-      // butterfly: all four lanes end with the same (commutative) sum
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      const float val = k0 + j < T ? dot * scale_log2 : -INFINITY;
-      sc[j] = val;
-      mx = fmaxf(mx, val);
+      for (int j = 0; j < 8; ++j) asm volatile("" : "+f"(qr[m][j / 4][j % 4]));
     }
-    const float m_new = fmaxf(m_run, mx);
-    const float base = m_new == -INFINITY ? 0.f : m_new;
-    const float alpha = exp2f(m_run - base);
-    m_run = m_new;
-    l_run *= alpha;
+    const uint32_t* stage = sm + (kt % kF32Stages) * kF32StageFloats;
+    float sc[16];
+    f32_scores(sc, qr, stage, g, tq);
+    online_softmax(sc, m_run, l_run, alpha, kt * kF32TileK, T, tq, scale_log2);
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kF32BlockK; ++j) {
-      const float p = exp2f(sc[j] - base);
-      l_run += p;
-#pragma unroll
-      for (int i = 0; i < kPer / 4; ++i) {
-        const float4 vx =
-            *reinterpret_cast<const float4*>(vs + j * kHeadDim + 16 * i + 4 * sub);
-        acc[4 * i] = fmaf(p, vx.x, acc[4 * i]);
-        acc[4 * i + 1] = fmaf(p, vx.y, acc[4 * i + 1]);
-        acc[4 * i + 2] = fmaf(p, vx.z, acc[4 * i + 2]);
-        acc[4 * i + 3] = fmaf(p, vx.w, acc[4 * i + 3]);
-      }
-    }
-    __syncthreads();
+    for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    f32_pv(acc, sc, stage, g, tq);
   }
 
-  if (!ok) return;
-  if (kLse && sub == 0) {
-    lse[static_cast<long long>(blockIdx.x) * T + row] = (m_run + log2f(l_run)) * kLn2;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    inv[r] = l_run[r] > 0.f ? 1.f / l_run[r] : 0.f;
   }
-  const float inv = l_run > 0.f ? 1.f / l_run : 0.f;
+  const int r1 = r0 + 8;
+  if (kLse && tq == 0) {  // natural-log log-sum-exp of the scaled scores
+    float* lb = lse + static_cast<long long>(blockIdx.y) * T;
+    if (r0 < T) lb[r0] = (m_run[0] + log2f(l_run[0])) * kLn2;
+    if (r1 < T) lb[r1] = (m_run[1] + log2f(l_run[1])) * kLn2;
+  }
   const long long o_st = static_cast<long long>(H) * kHeadDim;
-  float* orow = o + (static_cast<long long>(b) * T + row) * o_st + h * kHeadDim;
+  float* ob = o + static_cast<long long>(b) * T * o_st + h * kHeadDim;
 #pragma unroll
-  for (int i = 0; i < kPer / 4; ++i) {
-    *reinterpret_cast<float4*>(orow + 16 * i + 4 * sub) =
-        make_float4(acc[4 * i] * inv, acc[4 * i + 1] * inv,
-                    acc[4 * i + 2] * inv, acc[4 * i + 3] * inv);
+  for (int i = 0; i < 16; ++i) {
+    const int col = 8 * i + 2 * tq;
+    if (r0 < T) {
+      *reinterpret_cast<float2*>(ob + r0 * o_st + col) =
+          make_float2(acc[4 * i] * inv[0], acc[4 * i + 1] * inv[0]);
+    }
+    if (r1 < T) {
+      *reinterpret_cast<float2*>(ob + r1 * o_st + col) =
+          make_float2(acc[4 * i + 2] * inv[1], acc[4 * i + 3] * inv[1]);
+    }
   }
 }
 
 // --------------------------------------------------------- backward ---
-
-struct Strides {
-  long long b, t, h;
-};
 
 struct BwdArgs {
   const void* q;
@@ -919,6 +1136,12 @@ flash_bwd_dq_convert(const float* __restrict__ acc, __nv_bfloat16* __restrict__ 
   *reinterpret_cast<uint4*>(dq + (bh / H) * sdq.b + t * sdq.t + (bh % H) * sdq.h + chunk * 8) = out;
 }
 
+// ------------------------------------------------------ f32 backward ---
+
+constexpr int kF32BlockQ = 32;   // 128 threads, 4 per query (dQ) or key (dK/dV)
+constexpr int kF32BlockK = 32;
+constexpr int kPer = kHeadDim / 4;  // dims held by each thread
+
 // f32: 4 threads per row, thread `sub` holding dims 16·i + 4·sub + {0..3}
 __device__ __forceinline__ void load_row_f32(float r[kPer], const float* p, bool ok, int sub) {
 #pragma unroll
@@ -1144,9 +1367,11 @@ Strides elem_strides(const long long* s, int elem) {
 // dtype: 0 = float32, 1 = bfloat16. `strides` (host memory): byte strides
 // of the head, time and batch dimensions of q, k, v, in that order (the
 // tensor maps' order). `lse` is null for inference, else an f32 (B, H, T)
-// output. Returns the launch's cudaGetLastError() (0 on success).
+// output. `split` (f32 only; bf16 takes null) is scratch of
+// 4·B·H·⌈T/32⌉·32·128 32-bit values for the split K and V. Returns the
+// launches' cudaGetLastError() (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                                   int dtype, int B, int T, int H, int head_dim,
+                                   void* split, int dtype, int B, int T, int H, int head_dim,
                                    const long long* strides, float scale, void* stream) {
   if (head_dim != kHeadDim || B <= 0 || T <= 0 || H <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1167,21 +1392,28 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     kernel<<<dim3((T + kTileQ - 1) / kTileQ, B * H), kThreads, kFwdSmem, st>>>(
         mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), T, H, scale_log2);
   } else if (dtype == 0) {
+    const int t_pad = (T + kF32TileK - 1) / kF32TileK * kF32TileK;
     const Strides sq = elem_strides(strides, 4);
-    const Strides sk = elem_strides(strides + 3, 4);
-    const Strides sv = elem_strides(strides + 6, 4);
-    const dim3 grid(B * H, (T + kF32BlockQ - 1) / kF32BlockQ);
+    flash_split_kv_f32<<<dim3(t_pad / kF32TileK, B * H), 256, 0, st>>>(
+        static_cast<const float*>(k), static_cast<const float*>(v), static_cast<uint32_t*>(split),
+        T, H, t_pad, elem_strides(strides + 3, 4), elem_strides(strides + 6, 4));
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
     auto kernel = lse != nullptr ? flash_fwd_f32<true> : flash_fwd_f32<false>;
-    kernel<<<grid, 128, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o),
-        static_cast<float*>(lse), T, H, sq.b, sq.t, sq.h, sk.b, sk.t, sk.h,
-        sv.b, sv.t, sv.h, scale_log2);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kF32Smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3((T + kF32TileQ - 1) / kF32TileQ, B * H), kF32Threads, kF32Smem, st>>>(
+        static_cast<const float*>(q), static_cast<const uint32_t*>(split), static_cast<float*>(o),
+        static_cast<float*>(lse), T, H, t_pad, sq, scale_log2);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// Dynamic shared memory of the forward kernel of `dtype` (0 = float32,
+// 1 = bfloat16), in bytes: what each launch asks for.
+extern "C" int flash_attention_fwd_smem(int dtype) { return dtype == 1 ? kFwdSmem : kF32Smem; }
 
 // The backward: dq, dk, dv from q, k, v, dout, the f32 (B, H, T) lse and
 // delta. `strides` (host memory): byte strides (head, time, batch) of q,

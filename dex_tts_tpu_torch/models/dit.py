@@ -8,7 +8,9 @@ in the JAX package. Parameter names match the reference state_dict.
 Attention routes as the JAX package routes it (`resolve_attention_mode`):
 "einsum" is MHSA's own plain einsum; "flash", "flash_bf16", "splash" and
 "splash_bf16" all launch the hand-written Hopper kernel on CUDA
-(`ops/attention.py`), whose plain version serves CPU tensors; with grad
+(`ops/attention.py`), in f32 for "flash" and "splash" and in bf16 for the
+*_bf16 modes (`attention_kernel_dtype`), whose plain version serves CPU
+tensors in the compute dtype; with grad
 enabled the kernel runs under its autograd Function, whose backward is
 the kernel's backward. In train mode with ``mask_ratio`` > 0 the DiT
 keeps a random subset of tokens (MAE-style, reference: dit.py:139-212).
@@ -80,6 +82,17 @@ def resolve_attention_mode(cfg: DiTConfig, n_tokens: int, train: bool = False) -
     return "flash_bf16" if n_tokens >= threshold else "einsum"
 
 
+def attention_kernel_dtype(mode: str, compute_dtype: torch.dtype, on_cuda: bool) -> torch.dtype:
+    """The dtype a "flash*"/"splash*" mode runs its attention in, as the JAX
+    package chooses it (dit.py:375,421): on the accelerator bf16 for the
+    *_bf16 modes and f32 for "flash" and "splash", whatever the compute
+    dtype (the result is cast back to it); elsewhere its einsum fallback in
+    the compute dtype (dit.py:350-362)."""
+    if not on_cuda:
+        return compute_dtype
+    return torch.bfloat16 if mode.endswith("_bf16") else torch.float32
+
+
 def token_count(cfg: DiTConfig, width: int) -> int:
     """DiT tokens for a mid feature map ``width`` frames wide: the time
     axis padded to a multiple of the patch, then the patch conv's output
@@ -124,10 +137,7 @@ class MHSA(nn.Module):
         qkv = run_in(self.qkv, x, dt).reshape(b, t, 3, h, hd)
         mode = resolve_attention_mode(cfg, t, train)
         if mode.startswith(("flash", "splash")):
-            # the TPU kernels take bf16 for the *_bf16 modes; on the CPU the
-            # JAX package falls back to its einsum in the compute dtype, and
-            # the plain version here does the same
-            kdt = torch.bfloat16 if mode.endswith("_bf16") and x.is_cuda else dt
+            kdt = attention_kernel_dtype(mode, dt, x.is_cuda)
             out = flash_attention_qkv(qkv.to(kdt), hd**-0.5).to(dt)
         elif mode == "einsum":
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]

@@ -109,7 +109,7 @@ def _kernel():
     lib = load_library("flash_attention.cu")
     fwd = lib.flash_attention_fwd
     fwd.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
         + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     )
     bwd = lib.flash_attention_bwd
@@ -133,7 +133,8 @@ def flash_attention(q, k, v, scale: float, with_lse: bool = False):
     also the f32 (B, H, T) log-sum-exp.
 
     CPU tensors take the plain version (any head_dim); CUDA tensors launch
-    the kernel (on the current stream, no synchronisation) or raise."""
+    the kernel (on the current stream, no synchronisation) or raise: bf16
+    on the tensor cores in bf16, f32 on them in 3xTF32 (f32 accuracy)."""
     if q.device.type == "cpu":
         if with_lse:
             out, lse = attention_reference_lse(q, k, v, scale)
@@ -145,19 +146,26 @@ def flash_attention(q, k, v, scale: float, with_lse: bool = False):
     b, t, h, hd = q.shape
     out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if with_lse else None
+    split = None
+    if q.dtype == torch.float32:
+        # the f32 kernel's pre-pass splits K and V into TF32 halves here:
+        # four (B, H, ⌈T/32⌉·32, hd) planes of 32-bit values
+        split = torch.empty((4, b, h, -(-t // 32) * 32, hd), dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):  # the C launcher uses the current device
         err = _kernel()[0](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            0 if lse is None else lse.data_ptr(), _DTYPE_CODE[q.dtype], b, t, h, hd,
-            _strides(q, k, v), float(scale), _stream(q),
+            0 if lse is None else lse.data_ptr(), 0 if split is None else split.data_ptr(),
+            _DTYPE_CODE[q.dtype], b, t, h, hd, _strides(q, k, v), float(scale), _stream(q),
         )
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.launches_by_dtype[q.dtype] += 1
     return (out, lse) if with_lse else out
 
 
-flash_attention.launches = 0
+flash_attention.launches = 0  # all launches; by input dtype below
+flash_attention.launches_by_dtype = dict.fromkeys(_DTYPE_CODE, 0)
 
 
 def _check_bwd(q, k, v, do, lse, delta, dq, dk, dv):

@@ -19,12 +19,14 @@ from dex_tts_tpu_torch.ops.attention import (  # noqa: E402
 from tests.torch_port_util import t  # noqa: E402
 
 
-def jax_einsum_attention(q, k, v, dt=jnp.float32):
+def jax_einsum_attention(q, k, v, dt=jnp.float32, precision=None):
     """The JAX MHSA einsum branch (dit.py:356-362) on (B, T, H, hd)."""
     hd = q.shape[-1]
-    scores = jnp.einsum("bthd,bshd->bhts", q, k, preferred_element_type=jnp.float32) * (hd**-0.5)
+    scores = jnp.einsum("bthd,bshd->bhts", q, k, preferred_element_type=jnp.float32,
+                        precision=precision) * (hd**-0.5)
     weights = jax.nn.softmax(scores, axis=-1).astype(dt)
-    return jnp.einsum("bhts,bshd->bthd", weights, v, preferred_element_type=jnp.float32).astype(dt)
+    return jnp.einsum("bhts,bshd->bthd", weights, v, preferred_element_type=jnp.float32,
+                      precision=precision).astype(dt)
 
 
 @pytest.mark.parametrize("T", [7, 64, 777])
@@ -136,3 +138,102 @@ def test_tensor_map_layout_addresses_qkv_views(T, dtype):
     do = torch.zeros((b, T, h, hd), dtype=dtype)
     dims, strides = tensor_map_layout(do)
     assert dims == (hd, h, T, b) and strides == (hd * e, h * hd * e, T * h * hd * e)
+
+
+# The JAX package's attention dtype for each (mode, compute dtype, on the
+# accelerator): there `dt = jnp.bfloat16 if mode == "splash_bf16" else
+# jnp.float32` (dex_tts_tpu/models/dit.py:375) and the same for flash
+# (:421), whatever the compute dtype; elsewhere the einsum fallback in the
+# compute dtype (:350-362).
+JAX_ATTENTION_DTYPE = {
+    ("flash", "float32", True): "float32",
+    ("flash", "bfloat16", True): "float32",
+    ("splash", "float32", True): "float32",
+    ("splash", "bfloat16", True): "float32",
+    ("flash_bf16", "float32", True): "bfloat16",
+    ("flash_bf16", "bfloat16", True): "bfloat16",
+    ("splash_bf16", "float32", True): "bfloat16",
+    ("splash_bf16", "bfloat16", True): "bfloat16",
+    ("flash", "float32", False): "float32",
+    ("flash", "bfloat16", False): "bfloat16",
+    ("splash", "float32", False): "float32",
+    ("splash", "bfloat16", False): "bfloat16",
+    ("flash_bf16", "float32", False): "float32",
+    ("flash_bf16", "bfloat16", False): "bfloat16",
+    ("splash_bf16", "float32", False): "float32",
+    ("splash_bf16", "bfloat16", False): "bfloat16",
+}
+
+
+@pytest.mark.parametrize("mode, compute, on_cuda", sorted(JAX_ATTENTION_DTYPE))
+def test_attention_kernel_dtype_matches_jax_choice(mode, compute, on_cuda):
+    got = pdit.attention_kernel_dtype(mode, pdit.DTYPES[compute], on_cuda)
+    assert got == pdit.DTYPES[JAX_ATTENTION_DTYPE[mode, compute, on_cuda]]
+
+
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+
+
+def tf32_rna(x):
+    """cvt.rna.tf32.f32 by bit arithmetic: the 13 low mantissa bits rounded
+    off, to nearest with ties away from zero (sign and magnitude are apart
+    in the bits, so adding half of the dropped unit rounds |x| up)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def matmul_tf32(a, b, products):
+    """a @ b as the kernel's m16n8k8 TF32 products accumulate it in f32:
+    one product of the TF32-rounded operands, or three of their big and
+    small parts (small·big, big·small, then big·big)."""
+    a_big, b_big = tf32_rna(a), tf32_rna(b)
+    if products == 1:
+        return a_big @ b_big
+    a_small, b_small = tf32_rna(a - a_big), tf32_rna(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def emulate_flash_fwd_f32(q, k, v, scale, products, block=64):
+    """The arithmetic of csrc/flash_attention.cu's flash_fwd_f32 on (B, T,
+    H, hd) f32 tensors: 64-key blocks, S and P·V by `matmul_tf32`, the
+    online softmax in f32 with exp2 and scale·log2 e folded into the
+    scores, P not rounded. → (o (B, T, H, hd), lse (B, H, T), natural log)."""
+    qh, kh, vh = (a.transpose(1, 2) for a in (q, k, v))
+    scale_log2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    m = torch.full(qh.shape[:-1] + (1,), -torch.inf)
+    s_sum = torch.zeros_like(m)
+    acc = torch.zeros_like(qh)
+    for k0 in range(0, qh.shape[2], block):
+        kb, vb = kh[:, :, k0:k0 + block], vh[:, :, k0:k0 + block]
+        s = matmul_tf32(qh, kb.transpose(-1, -2), products) * scale_log2
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        s_sum = s_sum * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + matmul_tf32(p, vb, products)
+        m = m_new
+    lse = (m + torch.log2(s_sum)) * LN2
+    return (acc / s_sum).transpose(1, 2), lse[..., 0]
+
+
+@pytest.mark.parametrize("T", [1, 63, 200])
+def test_3xtf32_emulation_matches_jax_einsum(T):
+    """The f32 kernel's 3xTF32 arithmetic stays within 1e-5 of the JAX
+    einsum at HIGHEST precision (o and lse); one TF32 product per product
+    errs at least 10× more, which is why the kernel splits its operands
+    (chip_smoke.py holds the kernel's o to atol 1e-4)."""
+    rng = np.random.default_rng(100 + T)
+    qkv = rng.standard_normal((2, T, 3, 2, 128)).astype(np.float32)
+    q, k, v = (qkv[:, :, i] for i in range(3))
+    want = np.asarray(jax_einsum_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                           precision=jax.lax.Precision.HIGHEST))
+    scores = jnp.einsum("bthd,bshd->bhts", q, k, precision=jax.lax.Precision.HIGHEST) * 128**-0.5
+    want_lse = np.asarray(jax.nn.logsumexp(scores, axis=-1))
+    errs = {}
+    for products in (3, 1):
+        o, lse = emulate_flash_fwd_f32(t(q), t(k), t(v), 128**-0.5, products)
+        errs[products] = np.abs(o.numpy() - want).max()
+        if products == 3:
+            assert np.abs(lse.numpy() - want_lse).max() <= 1e-5
+    assert errs[3] <= 1e-5, errs
+    assert errs[1] >= 10 * errs[3] and errs[1] > 0, errs
