@@ -352,6 +352,31 @@ def attention_fwd_bwd_bound_ms(b, t, h, hd, dtype) -> tuple[float, str, str]:
     return roofline_ms(n_bytes, 14 * b * h * t * t * hd, dtype)
 
 
+F32_BWD_KERNELS = ("flash_split_rows_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
+
+
+def kernel_device_ms(fn, names, iters: int = 10) -> dict:
+    """Device time per call of ``fn`` of each kernel whose name holds one of
+    ``names``, from torch.profiler over ``iters`` calls after one warm-up
+    (None where the trace shows no device time for it)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names)
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0)
+        for name in names:
+            if name in e.key and dev > 0:
+                out[name] = (out[name] or 0.0) + dev / 1e3 / iters
+    return out
+
+
 def phase_attention_backward():
     """K1's forward with its log-sum-exp (the instantiation a train step
     runs) and backward kernels against the plain versions on the card: bf16
@@ -437,6 +462,21 @@ def phase_attention_backward():
         def kernel_fwd_bwd():
             FlashAttentionQKV.apply(leaf, scale).backward(do)
 
+        extra = {}
+        if dtype == torch.float32:
+            # per-kernel device time (which one sets the pace), and two
+            # calls on the same inputs must give the same bits (no atomics)
+            extra["kernel_device_ms"] = kernel_device_ms(kernels_bwd, F32_BWD_KERNELS)
+            kernels_bwd()
+            first = dqkv.clone()
+            dqkv.fill_(float("nan"))
+            kernels_bwd()
+            torch.cuda.synchronize()
+            extra["bit_identical"] = torch.equal(first, dqkv)
+            log(f"flash backward f32 at {TRAIN_ATTN_SHAPE}: device ms per kernel"
+                f" {extra['kernel_device_ms']}; two calls bit-identical: {extra['bit_identical']}")
+            assert extra["bit_identical"], "two f32 backward calls differ"
+            del first
         fwd_ms = time_ms(lambda: flash_attention(q, k, v, scale), 20)
         fwd_lse_ms = time_ms(lambda: flash_attention(q, k, v, scale, with_lse=True), 20)
         ms = time_ms(kernels_bwd, 20)
@@ -475,7 +515,7 @@ def phase_attention_backward():
                              bound_rate=rate,
                              library_bwd_ms=library_bwd_ms, fwd_bwd_ms=fwd_bwd_ms,
                              plain_fwd_bwd_ms=plain_fwd_bwd_ms, fwd_bwd_bound_ms=fb_bound_ms,
-                             fwd_bwd_bound_by=fb_bound_by, library_ms=library_ms)
+                             fwd_bwd_bound_by=fb_bound_by, library_ms=library_ms, **extra)
         log(f"flash forward {dtype} at {TRAIN_ATTN_SHAPE}: {fwd_ms:.4f} ms, with log-sum-exp"
             f" {fwd_lse_ms:.4f} ms (bound {fl_bound_ms:.4f} ms, {fl_bound_by}, {rate}); sdpa"
             f" ({backend.name}) forward {library_fwd_ms:.4f} ms with max_abs_err {sdpa_err:.3e} against"
@@ -1140,6 +1180,13 @@ def main():
     smem = load_library("flash_attention.cu").flash_attention_fwd_smem(0)
     for line in fwd_f32_build:
         log(f"f32 forward (3xTF32) build: {line}; dynamic shared memory {smem} bytes")
+    bwd_f32_build = [line for line in resource_usage("flash_attention.cu")
+                     if any(n in line.split(":")[0] for n in F32_BWD_KERNELS)]
+    bwd_smem = {n: load_library("flash_attention.cu").flash_attention_bwd_f32_smem(i)
+                for i, n in enumerate(F32_BWD_KERNELS)}
+    for line in bwd_f32_build:
+        log(f"f32 backward (3xTF32) build: {line}")
+    log(f"f32 backward dynamic shared memory (bytes): {bwd_smem}")
 
     report = phase_kernels()
     route = phase_route()
@@ -1222,7 +1269,7 @@ def main():
         "shape": list(TRAIN_ATTN_SHAPE),
         "dtype": "bfloat16",
         "bf16": {k: v for k, v in bwd[torch.bfloat16].items()},
-        "f32": {k: v for k, v in bwd[torch.float32].items()},
+        "f32": {**bwd[torch.float32], "build": bwd_f32_build, "dynamic_smem_bytes": bwd_smem},
         "card": card,
     }, {
         "name": "mas",

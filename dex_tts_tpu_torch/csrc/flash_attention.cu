@@ -1136,6 +1136,332 @@ flash_bwd_dq_convert(const float* __restrict__ acc, __nv_bfloat16* __restrict__ 
   *reinterpret_cast<uint4*>(dq + (bh / H) * sdq.b + t * sdq.t + (bh % H) * sdq.h + chunk * 8) = out;
 }
 
+// ----------------------------------------------- f32 backward (3xTF32) ---
+
+// The f32 backward keeps its row blocks in shared memory unpadded, 128
+// words a row, with the 16-byte chunks of row r XOR-swizzled by
+// bwd_swizzle(r) = 2·((r >> 1) & 3) ^ 4·(r & 1). Both patterns the products
+// read are then free of bank conflicts:
+//   * float4 reads of rows g (+ 8n) at chunk 4m + tq (A and B fragments of
+//     a product over hd): in a quarter-warp, rows 2a and 2a + 1 differ in
+//     bit 2 of the swizzle and so take the two halves of the banks;
+//   * 32-bit reads of rows 2tq + e (+ 8n) at word 8i + g (B of a product
+//     over rows, read transposed): the four tq swizzle by 2tq ^ 4e, so the
+//     chunks 2i and 2i + 1 land in eight distinct chunk slots. (At the
+//     forward's padded pitch of 144 words, 2tq·144 ≡ 0 mod 32: a 4-way
+//     conflict.)
+constexpr int kF32BwdTileK = 32;  // dQ: keys per ring stage (and the planes' row padding)
+constexpr int kF32BwdTileQ = 16;  // dK/dV: queries per ring stage
+constexpr int kDqDo = kF32TileQ * kHeadDim;            // dQ: dO raw, 128 rows (floats)
+constexpr int kDqStage = 4 * kF32BwdTileK * kHeadDim;  // K big, K small, V big, V small
+constexpr int kDqSmem = (kDqDo + kF32Stages * kDqStage) * 4 + 128;  // + alignment slack
+
+__device__ __forceinline__ int bwd_swizzle(int r) { return (((r >> 1) & 3) << 1) ^ ((r & 1) << 2); }
+
+// word offset of 16-byte chunk c of row r in a swizzled row block
+__device__ __forceinline__ int bwd_swz(int r, int c) {
+  return r * kHeadDim + 4 * (c ^ bwd_swizzle(r));
+}
+
+// 16 (4) bytes from global to shared memory by cp.async; zeros, with the
+// source not read, where `ok` is false
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// The backward's pre-pass: up to four strided f32 (B, T, H, 128) tensors,
+// blockIdx.z picking one, each split into a TF32 big and a small plane of
+// ⌈T/32⌉·32·hd values per (b, h), rows as they are (zeros for rows ≥ T).
+// Tensor z's big plane starts 2z planes into `split`, its small plane one
+// plane later. One CTA per (32-row tile, b·h, tensor).
+struct SplitRowsArgs {
+  const float* x[4];
+  Strides s[4];
+};
+
+__global__ void __launch_bounds__(256)
+flash_split_rows_f32(const SplitRowsArgs a, uint32_t* __restrict__ split, int T, int H, int t_pad) {
+  const int z = blockIdx.z;
+  const int bh = blockIdx.y;
+  const int r0 = blockIdx.x * kF32BwdTileK;
+  const long long plane = static_cast<long long>(gridDim.y) * t_pad * kHeadDim;
+  uint32_t* big = split + 2 * z * plane + (static_cast<long long>(bh) * t_pad + r0) * kHeadDim;
+  const Strides s = a.s[z];
+  const float* xb = a.x[z] + (bh / H) * s.b + (bh % H) * s.h;
+  for (int i = threadIdx.x; i < kF32BwdTileK * (kHeadDim / 4); i += blockDim.x) {
+    const int r = i / (kHeadDim / 4);
+    const int c = (i % (kHeadDim / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < T) x = *reinterpret_cast<const float4*>(xb + (r0 + r) * s.t + c);
+    uint4 small;
+    const uint4 b = split4(x, small);
+    *reinterpret_cast<uint4*>(big + r * kHeadDim + c) = b;
+    *reinterpret_cast<uint4*>(big + plane + r * kHeadDim + c) = small;
+  }
+}
+
+// kRows rows of four split planes (tile + p·plane, p = 0..3) into a ring
+// stage of four swizzled row blocks, 16 bytes per cp.async
+template <int kRows>
+__device__ __forceinline__ void load_split_rows(uint32_t* stage, const uint32_t* tile,
+                                                long long plane) {
+  for (int i = threadIdx.x; i < 4 * kRows * (kHeadDim / 4); i += kF32Threads) {
+    const int p = i / (kRows * (kHeadDim / 4));
+    const int r = (i / (kHeadDim / 4)) % kRows;
+    const int c = i % (kHeadDim / 4);
+    cp_async16(stage + p * kRows * kHeadDim + bwd_swz(r, c), tile + p * plane + r * kHeadDim + 4 * c);
+  }
+}
+
+// Raw f32 rows r0 .. r0 + kRows − 1 of a (b, h) slice (time stride st)
+// into a swizzled row block, rows ≥ T as zeros
+template <int kRows>
+__device__ __forceinline__ void load_raw_rows(float* dst, const float* src, long long st, int r0,
+                                              int T) {
+  for (int i = threadIdx.x; i < kRows * (kHeadDim / 4); i += kF32Threads) {
+    const int r = i / (kHeadDim / 4);
+    const int c = i % (kHeadDim / 4);
+    const bool ok = r0 + r < T;
+    cp_async16_zfill(dst + bwd_swz(r, c), src + (ok ? (r0 + r) * st + 4 * c : 0), ok);
+  }
+}
+
+// Split A fragments of the k-steps (m, 0) and (m, 1) of a product over hd,
+// the sum permuted as in f32_scores (k = tq: dim 16m + 4tq + 2h, k = tq + 4:
+// the next dim), from raw f32 rows: A rows g and g + 8 in registers as
+// flash_fwd_f32 holds Q (ARegs), or in a swizzled block (ASmem: `a` at row
+// g, `off` the word offset of chunk 4m + tq in a row of it).
+struct ARegs {
+  const float (&x)[8][2][4];
+  __device__ __forceinline__ void operator()(int m, int, uint32_t (&big)[2][4],
+                                             uint32_t (&small)[2][4]) const {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      split_tf32(x[m][0][2 * hf], big[hf][0], small[hf][0]);
+      split_tf32(x[m][1][2 * hf], big[hf][1], small[hf][1]);
+      split_tf32(x[m][0][2 * hf + 1], big[hf][2], small[hf][2]);
+      split_tf32(x[m][1][2 * hf + 1], big[hf][3], small[hf][3]);
+    }
+  }
+};
+
+struct ASmem {
+  const float* a;
+  __device__ __forceinline__ void operator()(int, int off, uint32_t (&big)[2][4],
+                                             uint32_t (&small)[2][4]) const {
+    const float4 x = *reinterpret_cast<const float4*>(a + off);
+    const float4 y = *reinterpret_cast<const float4*>(a + 8 * kHeadDim + off);
+    split_tf32(x.x, big[0][0], small[0][0]);
+    split_tf32(y.x, big[0][1], small[0][1]);
+    split_tf32(x.y, big[0][2], small[0][2]);
+    split_tf32(y.y, big[0][3], small[0][3]);
+    split_tf32(x.z, big[1][0], small[1][0]);
+    split_tf32(y.z, big[1][1], small[1][1]);
+    split_tf32(x.w, big[1][2], small[1][2]);
+    split_tf32(y.w, big[1][3], small[1][3]);
+  }
+};
+
+// C(16 × 8N) = A·Bᵀ over hd, 3xTF32, in the m16n8 accumulator layout:
+// c[4n + e] is A's row g + 8·(e / 2) against B's row 8n + 2tq + e % 2. B's
+// 8N rows come from a swizzled block of split rows: `b` at row g of the big
+// block, the small block `small_at` words later. rd0 = 4·(tq ^ swizzle(g))
+// is the word offset of chunk tq in rows g (+ 8n), whose swizzle is g's.
+template <int N, typename ASplit>
+__device__ __forceinline__ void bwd_scores(float (&c)[4 * N], const ASplit& a_split,
+                                           const uint32_t* b, int small_at, int rd0) {
+  float* d[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) d[n] = c + 4 * n;
+#pragma unroll
+  for (int i = 0; i < 4 * N; ++i) c[i] = 0.f;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    // chunk 4m + tq: the swizzle (< 8) flips bits of 4·(m & 1) + tq only
+    const int off = 32 * (m >> 1) + ((m & 1) ? (rd0 ^ 16) : rd0);
+    uint32_t a_big[2][4], a_small[2][4];
+    a_split(m, off, a_big, a_small);
+    uint4 b_big[N], b_small[N];
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      b_big[n] = *reinterpret_cast<const uint4*>(b + 8 * n * kHeadDim + off);
+      b_small[n] = *reinterpret_cast<const uint4*>(b + small_at + 8 * n * kHeadDim + off);
+    }
+    mma_3xtf32<N>(d, a_big[0], a_small[0], b_big, b_small, 0);
+    mma_3xtf32<N>(d, a_big[1], a_small[1], b_big, b_small, 1);
+  }
+}
+
+// acc(16 × 128) += A·B over 16J rows of B, 3xTF32. A (f32, not rounded) is
+// a 16 × 16J tile in the accumulator layout (a[4n + e]: row g + 8·(e / 2),
+// column 8n + 2tq + e % 2), so k-step n takes fragment k = tq from B's row
+// 8n + 2tq and k = tq + 4 from row 8n + 2tq + 1, and A's registers are the
+// A fragment as they stand (as in f32_pv). B's rows come from a swizzled
+// block of split rows (`b` at row 0 of the big block, the small block
+// `small_at` words later), read transposed: thread (g, tq) reads word
+// 8i + g of its two rows, at 8·(i ^ tq ^ 2e) + g within the 32-word group
+// of i, e = row parity. acc[4i + e] is row g + 8·(e / 2), dim 8i + 2tq + e % 2.
+template <int J>
+__device__ __forceinline__ void bwd_pv(float (&acc)[64], const float (&a)[8 * J],
+                                       const uint32_t* b, int small_at, int g, int tq) {
+  const uint32_t* bt = b + 2 * tq * kHeadDim + g;
+  const int x = 8 * tq;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    uint32_t a_big[2][4], a_small[2][4];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const float* an = a + 4 * (2 * j + s);
+      split_tf32(an[0], a_big[s][0], a_small[s][0]);
+      split_tf32(an[2], a_big[s][1], a_small[s][1]);
+      split_tf32(an[1], a_big[s][2], a_small[s][2]);
+      split_tf32(an[3], a_big[s][3], a_small[s][3]);
+    }
+    const uint32_t* rows = bt + 16 * j * kHeadDim;
+#pragma unroll
+    for (int i0 = 0; i0 < 16; i0 += 4) {
+      float* const d[4] = {acc + 4 * i0, acc + 4 * i0 + 4, acc + 4 * i0 + 8, acc + 4 * i0 + 12};
+      uint4 b_big[4], b_small[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int w0 = 8 * i0 + ((8 * i) ^ x);        // rows 2tq (+ 8): even
+        const int w1 = 8 * i0 + ((8 * (i ^ 2)) ^ x);  // rows 2tq + 1 (+ 8): odd
+        // (x, y): k-step 2j, (z, w): k-step 2j + 1
+        b_big[i] = make_uint4(rows[w0], rows[kHeadDim + w1], rows[8 * kHeadDim + w0],
+                              rows[9 * kHeadDim + w1]);
+        b_small[i] = make_uint4(rows[small_at + w0], rows[small_at + kHeadDim + w1],
+                                rows[small_at + 8 * kHeadDim + w0],
+                                rows[small_at + 9 * kHeadDim + w1]);
+      }
+      mma_3xtf32<4>(d, a_big[0], a_small[0], b_big, b_small, 0);
+      mma_3xtf32<4>(d, a_big[1], a_small[1], b_big, b_small, 1);
+    }
+  }
+}
+
+// dQ = scale·dS·K: one CTA of 8 warps × 16 queries per (128-query tile,
+// b·h), the forward's skeleton. Q raw in registers (split per tile), dO
+// raw for the 128 queries in shared memory (loaded once), the split K and
+// V planes of 32-key tiles through a 2-stage cp.async ring. Per tile: S =
+// Q·Kᵀ; P = exp2(S·scale·log2 e − lse·log2 e) (no online softmax), keys
+// ≥ T masked; dP = dO·Vᵀ; dS = P∘(dP − D); dQ += dS·K with K read
+// transposed. Queries ≥ T: zero rows with lse = +inf (P = 0), not stored.
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ dout,
+                 const uint32_t* __restrict__ split, const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq, int T, int H, int t_pad,
+                 Strides sq, Strides sdo, Strides sdq, float scale_log2, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  float* dos = reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(smem_raw) + 127) &
+                                        ~uintptr_t(127));
+  uint32_t* ring = reinterpret_cast<uint32_t*>(dos + kDqDo);
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int q0 = blockIdx.x * kF32TileQ;
+  const long long plane = static_cast<long long>(gridDim.y) * t_pad * kHeadDim;
+  const uint32_t* tiles = split + static_cast<long long>(bh) * t_pad * kHeadDim;
+  const int n_tiles = t_pad / kF32BwdTileK;
+  constexpr int kBlock = kF32BwdTileK * kHeadDim;  // one plane's rows in a stage
+
+  // dO of the CTA's queries and tile 0 load together; one commit group
+  // per tile
+  load_raw_rows<kF32TileQ>(dos, dout + b * sdo.b + h * sdo.h, sdo.t, q0, T);
+  load_split_rows<kF32BwdTileK>(ring, tiles, plane);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  const int r0 = q0 + 16 * w + g;
+  float qr[8][2][4];
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    const bool ok = row < T;
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (ok) {
+        x = *reinterpret_cast<const float4*>(q + b * sq.b + h * sq.h + row * sq.t + 16 * m +
+                                             4 * tq);
+      }
+      qr[m][r][0] = x.x;
+      qr[m][r][1] = x.y;
+      qr[m][r][2] = x.z;
+      qr[m][r][3] = x.w;
+    }
+    lse2[r] = ok ? lse[static_cast<long long>(bh) * T + row] * kLog2e : INFINITY;
+    dl[r] = ok ? delta[static_cast<long long>(bh) * T + row] : 0.f;
+  }
+  const int rd0 = 4 * (tq ^ bwd_swizzle(g));
+  const ASmem do_rows{dos + (16 * w + g) * kHeadDim};
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    // tile kt (and dO) have landed, and every warp is done with tile
+    // kt − 1, whose stage now takes the load of tile kt + 1
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    if (kt + 1 < n_tiles) {
+      load_split_rows<kF32BwdTileK>(ring + ((kt + 1) % kF32Stages) * kDqStage,
+                                    tiles + (kt + 1) * kBlock, plane);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+    // Q's splits are redone per tile, as in flash_fwd_f32
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) asm volatile("" : "+f"(qr[m][j / 4][j % 4]));
+    }
+    const uint32_t* stage = ring + (kt % kF32Stages) * kDqStage;
+    float sc[16];
+    bwd_scores<4>(sc, ARegs{qr}, stage + g * kHeadDim, kBlock, rd0);
+    const int k0 = kt * kF32BwdTileK;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sc[i] = exp2f(sc[i] * scale_log2 - lse2[(i >> 1) & 1]);
+    if (k0 + kF32BwdTileK > T) {  // keys ≥ T: P = 0
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        if (k0 + 8 * (i >> 2) + 2 * tq + (i & 1) >= T) sc[i] = 0.f;
+      }
+    }
+    float dp[16];
+    bwd_scores<4>(dp, do_rows, stage + 2 * kBlock + g * kHeadDim, kBlock, rd0);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sc[i] *= dp[i] - dl[(i >> 1) & 1];
+    bwd_pv<2>(acc, sc, stage, kBlock, g, tq);
+  }
+
+  float* dqb = dq + b * sdq.b + h * sdq.h;
+  const int r1 = r0 + 8;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int col = 8 * i + 2 * tq;
+    if (r0 < T) {
+      *reinterpret_cast<float2*>(dqb + r0 * sdq.t + col) =
+          make_float2(acc[4 * i] * scale, acc[4 * i + 1] * scale);
+    }
+    if (r1 < T) {
+      *reinterpret_cast<float2*>(dqb + r1 * sdq.t + col) =
+          make_float2(acc[4 * i + 2] * scale, acc[4 * i + 3] * scale);
+    }
+  }
+}
+
 // ------------------------------------------------------ f32 backward ---
 
 constexpr int kF32BlockQ = 32;   // 128 threads, 4 per query (dQ) or key (dK/dV)
@@ -1247,46 +1573,6 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_f32(BwdArgs a) {
   if (!ok) return;
   store_row_f32(at_mut<float>(a.dk, a.sdk, b, h) + key * a.sdk.t, dk, a.scale, sub);
   store_row_f32(at_mut<float>(a.dv, a.sdv, b, h) + key * a.sdv.t, dv, 1.f, sub);
-}
-
-__global__ void __launch_bounds__(128) flash_bwd_dq_f32(BwdArgs a) {
-  __shared__ __align__(16) float ks[kF32BlockK * kHeadDim];
-  __shared__ __align__(16) float vs[kF32BlockK * kHeadDim];
-
-  const int T = a.T;
-  const int b = blockIdx.x / a.H;
-  const int h = blockIdx.x % a.H;
-  const int sub = threadIdx.x & 3;
-  const int row = blockIdx.y * kF32BlockQ + (threadIdx.x >> 2);
-  const bool ok = row < T;
-  const float* kb = at<float>(a.k, a.sk, b, h);
-  const float* vb = at<float>(a.v, a.sv, b, h);
-  const float* lb = a.lse + static_cast<long long>(blockIdx.x) * T;
-  const float* db = a.delta + static_cast<long long>(blockIdx.x) * T;
-
-  float qr[kPer], dr[kPer], dq[kPer];
-  load_row_f32(qr, at<float>(a.q, a.sq, b, h) + row * a.sq.t, ok, sub);
-  load_row_f32(dr, at<float>(a.dout, a.sdo, b, h) + row * a.sdo.t, ok, sub);
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) dq[i] = 0.f;
-  const float lse2 = ok ? lb[row] * kLog2e : 0.f;
-  const float dl = ok ? db[row] : 0.f;
-
-  for (int k0 = 0; k0 < T; k0 += kF32BlockK) {
-    stage_rows_f32(ks, kb, a.sk.t, k0, T);
-    stage_rows_f32(vs, vb, a.sv.t, k0, T);
-    __syncthreads();
-    const int n = min(kF32BlockK, T - k0);
-    for (int j = 0; j < n; ++j) {
-      const float s = dot_row_f32(qr, ks + j * kHeadDim, sub);
-      const float dp = dot_row_f32(dr, vs + j * kHeadDim, sub);
-      const float p = exp2f(s * a.scale_log2 - lse2);
-      axpy_row_f32(dq, p * (dp - dl), ks + j * kHeadDim, sub);
-    }
-    __syncthreads();
-  }
-  if (!ok) return;
-  store_row_f32(at_mut<float>(a.dq, a.sdq, b, h) + row * a.sdq.t, dq, a.scale, sub);
 }
 
 // `s`: byte strides (head, time, batch) of the f32 q, k, v, dout, dq, dk, dv
@@ -1418,11 +1704,13 @@ extern "C" int flash_attention_fwd_smem(int dtype) { return dtype == 1 ? kFwdSme
 // The backward: dq, dk, dv from q, k, v, dout, the f32 (B, H, T) lse and
 // delta. `strides` (host memory): byte strides (head, time, batch) of q,
 // k, v, dout, dq, dk, dv in that order. bf16 launches the one-pass kernel
-// into `dq_acc`, a zeroed f32 (B, H, ⌈T/64⌉·64, 128) accumulator, and then
-// the dQ convert; f32 (dq_acc unused) the dK/dV and the dQ kernel.
+// into `scratch`, a zeroed f32 (B, H, ⌈T/64⌉·64, 128) dQ accumulator, and
+// then the dQ convert; f32 the pre-pass into `scratch`, eight planes of
+// B·H·⌈T/32⌉·32·128 32-bit values (K, V, Q, dO, each big and small), then
+// the dQ and the dK/dV kernel.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
                                    const void* lse, const void* delta, void* dq, void* dk,
-                                   void* dv, void* dq_acc, int dtype, int B, int T, int H,
+                                   void* dv, void* scratch, int dtype, int B, int T, int H,
                                    int head_dim, const long long* strides, float scale,
                                    void* stream) {
   if (head_dim != kHeadDim || B <= 0 || T <= 0 || H <= 0) {
@@ -1439,7 +1727,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     }
     const int t_pad = (T + kBwdTileQ - 1) / kBwdTileQ * kBwdTileQ;
     const BwdBf16Args a{static_cast<const float*>(lse), static_cast<const float*>(delta),
-                        static_cast<float*>(dq_acc), static_cast<__nv_bfloat16*>(dk),
+                        static_cast<float*>(scratch), static_cast<__nv_bfloat16*>(dk),
                         static_cast<__nv_bfloat16*>(dv), elem_strides(strides + 15, 2),
                         elem_strides(strides + 18, 2), T, H, scale * kLog2e, scale};
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_bf16,
@@ -1451,16 +1739,38 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     if (err != cudaSuccess) return static_cast<int>(err);
     const long long n = static_cast<long long>(B) * H * T * (kHeadDim / 8);
     flash_bwd_dq_convert<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
-        static_cast<const float*>(dq_acc), static_cast<__nv_bfloat16*>(dq), B, T, H, t_pad,
+        static_cast<const float*>(scratch), static_cast<__nv_bfloat16*>(dq), B, T, H, t_pad,
         elem_strides(strides + 12, 2), scale);
   } else if (dtype == 0) {
+    const int t_pad = (T + kF32BwdTileK - 1) / kF32BwdTileK * kF32BwdTileK;
+    const Strides sq = elem_strides(strides, 4);
+    const Strides sdo = elem_strides(strides + 9, 4);
+    uint32_t* split = static_cast<uint32_t*>(scratch);
+    const SplitRowsArgs sa{{static_cast<const float*>(k), static_cast<const float*>(v),
+                            static_cast<const float*>(q), static_cast<const float*>(dout)},
+                           {elem_strides(strides + 3, 4), elem_strides(strides + 6, 4), sq, sdo}};
+    flash_split_rows_f32<<<dim3(t_pad / kF32BwdTileK, B * H, 2), 256, 0, st>>>(sa, split, T, H,
+                                                                              t_pad);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(flash_bwd_dq_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kDqSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_dq_f32<<<dim3((T + kF32TileQ - 1) / kF32TileQ, B * H), kF32Threads, kDqSmem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(dout), split,
+        static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dq),
+        T, H, t_pad, sq, sdo, elem_strides(strides + 12, 4), scale * kLog2e, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
     const BwdArgs a = make_args(q, k, v, dout, lse, delta, dq, dk, dv, T, H, strides, scale);
     flash_bwd_dkv_f32<<<dim3(B * H, (T + kF32BlockK - 1) / kF32BlockK), 128, 0, st>>>(a);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dq_f32<<<dim3(B * H, (T + kF32BlockQ - 1) / kF32BlockQ), 128, 0, st>>>(a);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// Dynamic shared memory of f32 backward kernel `kernel` (0 = the pre-pass
+// flash_split_rows_f32, 1 = flash_bwd_dq_f32, 2 = flash_bwd_dkv_f32), in
+// bytes: what each launch asks for.
+extern "C" int flash_attention_bwd_f32_smem(int kernel) { return kernel == 1 ? kDqSmem : 0; }

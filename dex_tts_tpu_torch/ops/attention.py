@@ -186,22 +186,27 @@ def flash_attention_bwd(q, k, v, do, lse, delta, dq, dk, dv, scale: float):
     lse and delta f32 (B, H, T). bf16 launches the one-pass kernel, which
     sums dQ over 128-key blocks into a zeroed f32 accumulator by bulk
     reduce-adds (in an order that changes from run to run), and its
-    convert kernel; f32 the dK/dV and dQ kernels. One call counts one
+    convert kernel; f32 a pre-pass that splits K, V, Q and dO into TF32
+    halves, then the dQ and dK/dV kernels (3xTF32 on the tensor cores, no
+    atomics: the same inputs give the same bits). One call counts one
     launch. CUDA tensors only: the plain version is
     `attention_bwd_reference`."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd is a CUDA kernel, got {q.device}")
     _check_bwd(q, k, v, do, lse, delta, dq, dk, dv)
     b, t, h, hd = q.shape
-    acc = None
     if q.dtype == torch.bfloat16:
         t_pad = -(-t // 64) * 64
-        acc = torch.zeros((b, h, t_pad, hd), dtype=torch.float32, device=q.device)
+        scratch = torch.zeros((b, h, t_pad, hd), dtype=torch.float32, device=q.device)
+    else:
+        # the f32 pre-pass splits K, V, Q and dO into TF32 halves here:
+        # eight (B, H, ⌈T/32⌉·32, hd) planes of 32-bit values
+        scratch = torch.empty((8, b, h, -(-t // 32) * 32, hd), dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         err = _kernel()[1](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            0 if acc is None else acc.data_ptr(), _DTYPE_CODE[q.dtype], b, t, h, hd,
+            scratch.data_ptr(), _DTYPE_CODE[q.dtype], b, t, h, hd,
             _strides(q, k, v, do, dq, dk, dv), float(scale), _stream(q),
         )
     if err:

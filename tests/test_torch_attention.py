@@ -16,7 +16,7 @@ from dex_tts_tpu_torch.ops.attention import (  # noqa: E402
     flash_attention,
     tensor_map_layout,
 )
-from tests.torch_port_util import t  # noqa: E402
+from tests.torch_port_util import matmul_tf32, t  # noqa: E402
 
 
 def jax_einsum_attention(q, k, v, dt=jnp.float32, precision=None):
@@ -173,24 +173,6 @@ def test_attention_kernel_dtype_matches_jax_choice(mode, compute, on_cuda):
 
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
-
-
-def tf32_rna(x):
-    """cvt.rna.tf32.f32 by bit arithmetic: the 13 low mantissa bits rounded
-    off, to nearest with ties away from zero (sign and magnitude are apart
-    in the bits, so adding half of the dropped unit rounds |x| up)."""
-    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def matmul_tf32(a, b, products):
-    """a @ b as the kernel's m16n8k8 TF32 products accumulate it in f32:
-    one product of the TF32-rounded operands, or three of their big and
-    small parts (small·big, big·small, then big·big)."""
-    a_big, b_big = tf32_rna(a), tf32_rna(b)
-    if products == 1:
-        return a_big @ b_big
-    a_small, b_small = tf32_rna(a - a_big), tf32_rna(b - b_big)
-    return a_small @ b_big + a_big @ b_small + a_big @ b_big
 
 
 def emulate_flash_fwd_f32(q, k, v, scale, products, block=64):

@@ -3,7 +3,8 @@
 autograd of the plain forward and against `jax.vjp` of the JAX package's
 einsum attention (dex_tts_tpu/models/dit.py:356-362), the branch its
 flash route falls back to off the TPU, also with dQ summed in the bf16
-kernel's order. The kernels themselves run on the card only
+kernel's order and with the f32 kernels' 3xTF32 arithmetic emulated as
+they tile it. The kernels themselves run on the card only
 (`chip_smoke.py`); here their wrapper must refuse CPU tensors."""
 
 import jax
@@ -14,7 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from dex_tts_tpu_torch.ops import attention as att  # noqa: E402
-from tests.torch_port_util import t  # noqa: E402
+from tests.torch_port_util import matmul_tf32, t  # noqa: E402
 
 SHAPES = [(2, 1, 2, 16), (2, 7, 2, 16), (3, 33, 2, 16), (1, 65, 1, 32)]
 
@@ -26,12 +27,14 @@ def _inputs(shape, seed, dtype=np.float32):
     return qkv, do
 
 
-def jax_einsum_attention(q, k, v, dt):
+def jax_einsum_attention(q, k, v, dt, precision=None):
     """dex_tts_tpu/models/dit.py:356-362."""
     hd = q.shape[-1]
-    scores = jnp.einsum("bthd,bshd->bhts", q, k, preferred_element_type=jnp.float32) * (hd**-0.5)
+    scores = jnp.einsum("bthd,bshd->bhts", q, k, preferred_element_type=jnp.float32,
+                        precision=precision) * (hd**-0.5)
     weights = jax.nn.softmax(scores, axis=-1).astype(dt)
-    return jnp.einsum("bhts,bshd->bthd", weights, v, preferred_element_type=jnp.float32).astype(dt)
+    return jnp.einsum("bhts,bshd->bthd", weights, v, preferred_element_type=jnp.float32,
+                      precision=precision).astype(dt)
 
 
 def _plain_bwd(qkv, do, dtype):
@@ -153,3 +156,77 @@ def test_backward_kernels_refuse_cpu_tensors(dtype):
         att.flash_attention_bwd(q, k, v, t(do).to(dtype), lse, delta, grads[:, :, 0],
                                 grads[:, :, 1], grads[:, :, 2], 0.1)
     assert att.flash_attention_bwd.launches == before
+
+
+LOG2E = 1.4426950408889634
+
+
+def emulate_flash_bwd_f32(q, k, v, do, lse, delta, scale, products):
+    """The arithmetic of csrc/flash_attention.cu's f32 backward on (B, T,
+    H, hd) f32 tensors, tiled as its kernels tile it, every product by
+    `matmul_tf32`: dQ over 32-key tiles (flash_bwd_dq_f32), dK and dV per
+    128-key block over 16-query tiles (flash_bwd_dkv_f32), the rows past T
+    of a last tile zero as the pre-pass writes them. P = exp2(S·scale·log2 e
+    − lse·log2 e) from the saved lse, keys ≥ T (dQ) and queries ≥ T (dK/dV)
+    masked to 0; P and dS stay f32; the scale is applied to the f32 sums.
+    → (dq, dk, dv), (B, T, H, hd)."""
+    t_len = q.shape[1]
+    qh, kh, vh, doh = (a.transpose(1, 2) for a in (q, k, v, do))  # (B, H, T, hd)
+    scale_log2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    lse2 = lse * LOG2E
+
+    def padded(x, n):  # rows up to a multiple of n, zeros past T
+        return torch.nn.functional.pad(x, (0, 0, 0, -(-t_len // n) * n - t_len))
+
+    kp, vp = padded(kh, 32), padded(vh, 32)
+    dq = torch.zeros_like(qh)
+    for k0 in range(0, kp.shape[2], 32):
+        kb, vb = kp[:, :, k0:k0 + 32], vp[:, :, k0:k0 + 32]
+        p = torch.exp2(matmul_tf32(qh, kb.transpose(-1, -2), products) * scale_log2
+                       - lse2[..., None])
+        p[..., torch.arange(k0, k0 + 32) >= t_len] = 0
+        dp = matmul_tf32(doh, vb.transpose(-1, -2), products)
+        dq = dq + matmul_tf32(p * (dp - delta[..., None]), kb, products)
+    qp, dop = padded(qh, 16), padded(doh, 16)
+    lse2p, deltap = (torch.nn.functional.pad(a, (0, qp.shape[2] - t_len)) for a in (lse2, delta))
+    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+    for k0 in range(0, t_len, 128):
+        kb, vb = kh[:, :, k0:k0 + 128], vh[:, :, k0:k0 + 128]
+        for q0 in range(0, qp.shape[2], 16):
+            qt, dot = qp[:, :, q0:q0 + 16], dop[:, :, q0:q0 + 16]
+            pt = torch.exp2(matmul_tf32(kb, qt.transpose(-1, -2), products) * scale_log2
+                            - lse2p[:, :, None, q0:q0 + 16])
+            pt[..., torch.arange(q0, q0 + 16) >= t_len] = 0
+            dpt = matmul_tf32(vb, dot.transpose(-1, -2), products)
+            dst = pt * (dpt - deltap[:, :, None, q0:q0 + 16])
+            dv[:, :, k0:k0 + 128] += matmul_tf32(pt, dot, products)
+            dk[:, :, k0:k0 + 128] += matmul_tf32(dst, qt, products)
+    return tuple(a.transpose(1, 2) for a in (dq * scale, dk * scale, dv))
+
+
+@pytest.mark.parametrize("T", [1, 63, 200])
+def test_3xtf32_backward_emulation_matches_jax_vjp(T):
+    """The f32 backward kernels' 3xTF32 arithmetic stays within the chip
+    gate, 1e-4 × max(max|g|, max|dv| / 10) per gradient, of `jax.vjp` of
+    the JAX einsum at HIGHEST precision; one TF32 product per product errs
+    at least 10× more (by the gate's measure), which is why the kernels
+    split their operands."""
+    rng = np.random.default_rng(300 + T)
+    qkv = rng.standard_normal((2, T, 3, 2, 128)).astype(np.float32)
+    do = rng.standard_normal((2, T, 2, 128)).astype(np.float32)
+    jq, jk, jv = (jnp.asarray(qkv[:, :, i]) for i in range(3))
+    _, vjp = jax.vjp(lambda q, k, v: jax_einsum_attention(
+        q, k, v, jnp.float32, precision=jax.lax.Precision.HIGHEST), jq, jk, jv)
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    q, k, v = (t(qkv[:, :, i]) for i in range(3))
+    scale = 128**-0.5
+    out, lse = att.flash_attention(q, k, v, scale, with_lse=True)  # CPU: the plain forward
+    delta = att.attention_delta(out, t(do))
+    bounds = _bound(want, 1e-4)
+    worst = {}
+    for products in (3, 1):
+        got = emulate_flash_bwd_f32(q, k, v, t(do), lse, delta, scale, products)
+        worst[products] = max(np.abs(g.numpy() - w).max() / b
+                              for g, w, b in zip(got, want, bounds))
+    assert worst[3] <= 1.0, worst
+    assert worst[1] >= 10 * worst[3] and worst[1] > 0, worst

@@ -151,6 +151,24 @@ def t(x, dtype=None):
     return out if dtype is None else out.to(dtype)
 
 
+def tf32_rna(x):
+    """cvt.rna.tf32.f32 by bit arithmetic: the 13 low mantissa bits rounded
+    off, to nearest with ties away from zero (sign and magnitude are apart
+    in the bits, so adding half of the dropped unit rounds |x| up)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def matmul_tf32(a, b, products):
+    """a @ b as the kernel's m16n8k8 TF32 products accumulate it in f32:
+    one product of the TF32-rounded operands, or three of their big and
+    small parts (small·big, big·small, then big·big)."""
+    a_big, b_big = tf32_rna(a), tf32_rna(b)
+    if products == 1:
+        return a_big @ b_big
+    a_small, b_small = tf32_rna(a - a_big), tf32_rna(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
 def port_inputs(inputs: dict) -> dict:
     """numpy batch → CPU tensors (integer arrays as int64)."""
     return {k: t(v, torch.long) if v.dtype.kind == "i" else t(v) for k, v in inputs.items()}
