@@ -66,11 +66,13 @@
 // saved log-sum-exp, dP = dO·Vᵀ, dS = P∘(dP − D); dV = Pᵀ·dO with P
 // rounded to the input type (the library's p.T.astype(do.dtype)), dK =
 // scale·dSᵀ·Q and dQ = scale·dS·K with dS rounded to the input type for
-// the tensor cores and the scale applied to the f32 sums. Bound at the
-// train step's shape (B=32, T=880, H=2, hd=128, bf16): 10·B·H·T²·hd
-// operations (S and dP recomputed, dV, dK, dQ: five T×T×hd products) =
-// 6.3e10 → 0.064 ms at 989 TFLOP/s; bytes (q, k, v, o, dO read, dq, dk, dv
-// written, lse and D) ≈ 58 MB → 0.017 ms. Bound by operations.
+// the tensor cores (bf16; f32 keeps P and dS in f32) and the scale applied
+// to the f32 sums. Bound at the train step's shape (B=32, T=880, H=2,
+// hd=128, bf16): 10·B·H·T²·hd operations (S and dP recomputed, dV, dK, dQ:
+// five T×T×hd products) = 6.3e10 → 0.064 ms at 989 TFLOP/s; bytes (q, k,
+// v, o, dO read, dq, dk, dv written, lse and D) ≈ 58 MB → 0.017 ms. Bound
+// by operations. In f32, three TF32 products per product: 3 × 6.3e10 →
+// 0.38 ms at 495 TFLOP/s.
 //   * bf16, one pass (flash_bwd_bf16): one CTA per (128-key block, b·h),
 //     warp-specialised as the forward. The producer loads the block's K
 //     and V once by TMA, then streams 64-query Q and dO tiles through a
@@ -90,9 +92,33 @@
 //     FlashAttention-3 does.
 //   * queries ≥ T are zero rows with lse = +inf (P = 0), keys ≥ T zero
 //     rows whose P is forced to 0 and whose dK/dV are not stored; any T.
-//   * the f32 variants: dK/dV and dQ kernels, 4 threads per key (dK/dV) or
-//     per query (dQ), each holding 32 dims, 32-row tiles, FMA on the CUDA
-//     cores.
+//   * f32 (3xTF32 mma.sync, as the f32 forward; P and dS stay f32 and are
+//     split, not rounded; no atomics, so a call repeats bit for bit): a
+//     pre-pass (flash_split_rows_f32) splits K, V, Q and dO once per call
+//     into TF32 big and small row planes in scratch of 8·B·H·⌈T/32⌉·32·128
+//     int32 from the wrapper, zeros past T. Rows sit in shared memory
+//     unpadded with their 16-byte chunks XOR-swizzled, so both the float4
+//     fragment reads and the transposed 32-bit reads of B are free of bank
+//     conflicts. Then two kernels of 8 warps × 16 rows, each row of a
+//     gradient written by one CTA:
+//     - dQ (flash_bwd_dq_f32), the forward's skeleton: per (128-query tile,
+//       b·h), Q raw in registers (64 a thread, split per tile), the dQ
+//       accumulator (64), S and dP (16 + 16), B fragments (32); dO raw for
+//       the 128 queries in shared memory (64 KB, loaded once) and 32-key
+//       K/V split tiles through a 2-stage cp.async ring (2 × 64 KB). Per
+//       tile S = Q·Kᵀ, P = exp2(S·scale·log2 e − lse·log2 e) with keys ≥ T
+//       masked, dP = dO·Vᵀ, dS = P∘(dP − D), dQ += dS·K (K read
+//       transposed).
+//     - dK/dV (flash_bwd_dkv_f32): per (128-key block, b·h), K and V raw in
+//       shared memory (2 × 64 KB, loaded once; not registers, which dK and
+//       dV fill: 64 + 64 a thread), 16-query Q/dO split tiles with their
+//       lse and D through a 2-stage ring (2 × 32 KB). Per tile Sᵀ = K·Qᵀ,
+//       dPᵀ = V·dOᵀ (8 + 8 registers), Pᵀ with queries ≥ T masked, dSᵀ,
+//       then dV += Pᵀ·dO and dK += dSᵀ·Q (dO, Q read transposed).
+//     The products over rows sum each pair of k-steps into a zeroed partial
+//     that a rounded f32 add puts into the accumulator, since the tensor
+//     cores' own f32 accumulation errs in proportion to the mma chained on
+//     it, which would grow with T.
 // Inputs are read through strides (views of the DiT's (B, T, 3, H, hd)
 // projection); gradients are written through strides into one
 // (B, T, 3, H, hd) buffer.
@@ -829,33 +855,6 @@ flash_fwd_f32(const float* __restrict__ q, const uint32_t* __restrict__ split,
   }
 }
 
-// --------------------------------------------------------- backward ---
-
-struct BwdArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  const float* lse;    // (B, H, T), natural log
-  const float* delta;  // (B, H, T), rowsum(dO∘O)
-  void* dq;
-  void* dk;
-  void* dv;
-  Strides sq, sk, sv, sdo, sdq, sdk, sdv;
-  int T, H;
-  float scale_log2, scale;
-};
-
-template <typename T_>
-__device__ __forceinline__ const T_* at(const void* base, const Strides& s, int b, int h) {
-  return static_cast<const T_*>(base) + b * s.b + h * s.h;
-}
-
-template <typename T_>
-__device__ __forceinline__ T_* at_mut(void* base, const Strides& s, int b, int h) {
-  return static_cast<T_*>(base) + b * s.b + h * s.h;
-}
-
 // ----------------------------------------------------- bf16 backward ---
 
 constexpr int kBwdTileQ = 64;                               // queries per ring stage
@@ -1155,6 +1154,10 @@ constexpr int kF32BwdTileQ = 16;  // dK/dV: queries per ring stage
 constexpr int kDqDo = kF32TileQ * kHeadDim;            // dQ: dO raw, 128 rows (floats)
 constexpr int kDqStage = 4 * kF32BwdTileK * kHeadDim;  // K big, K small, V big, V small
 constexpr int kDqSmem = (kDqDo + kF32Stages * kDqStage) * 4 + 128;  // + alignment slack
+constexpr int kDkvKV = 2 * kF32TileQ * kHeadDim;  // dK/dV: K and V raw, 128 rows each
+// Q big, Q small, dO big, dO small, then the tile's lse and D
+constexpr int kDkvStage = 4 * kF32BwdTileQ * kHeadDim + 2 * kF32BwdTileQ;
+constexpr int kDkvSmem = (kDkvKV + kF32Stages * kDkvStage) * 4 + 128;
 
 __device__ __forceinline__ int bwd_swizzle(int r) { return (((r >> 1) & 3) << 1) ^ ((r & 1) << 2); }
 
@@ -1194,8 +1197,11 @@ flash_split_rows_f32(const SplitRowsArgs a, uint32_t* __restrict__ split, int T,
   const int r0 = blockIdx.x * kF32BwdTileK;
   const long long plane = static_cast<long long>(gridDim.y) * t_pad * kHeadDim;
   uint32_t* big = split + 2 * z * plane + (static_cast<long long>(bh) * t_pad + r0) * kHeadDim;
-  const Strides s = a.s[z];
-  const float* xb = a.x[z] + (bh / H) * s.b + (bh % H) * s.h;
+  // a branch per tensor, not a.x[z]: an indexed parameter array is copied
+  // to local memory
+  const Strides s = z == 0 ? a.s[0] : z == 1 ? a.s[1] : z == 2 ? a.s[2] : a.s[3];
+  const float* xb = (z == 0 ? a.x[0] : z == 1 ? a.x[1] : z == 2 ? a.x[2] : a.x[3]) +
+                    (bh / H) * s.b + (bh % H) * s.h;
   for (int i = threadIdx.x; i < kF32BwdTileK * (kHeadDim / 4); i += blockDim.x) {
     const int r = i / (kHeadDim / 4);
     const int c = (i % (kHeadDim / 4)) * 4;
@@ -1309,6 +1315,11 @@ __device__ __forceinline__ void bwd_scores(float (&c)[4 * N], const ASplit& a_sp
 // `small_at` words later), read transposed: thread (g, tq) reads word
 // 8i + g of its two rows, at 8·(i ^ tq ^ 2e) + g within the 32-word group
 // of i, e = row parity. acc[4i + e] is row g + 8·(e / 2), dim 8i + 2tq + e % 2.
+// The tensor cores add into their f32 accumulator without rounding to
+// nearest, an error that grows with the number of mma instructions
+// chained on it; so each pair of k-steps sums into a zeroed partial (six
+// mma), which a rounded f32 add puts into acc: acc's error then no longer
+// grows with T.
 template <int J>
 __device__ __forceinline__ void bwd_pv(float (&acc)[64], const float (&a)[8 * J],
                                        const uint32_t* b, int small_at, int g, int tq) {
@@ -1328,7 +1339,10 @@ __device__ __forceinline__ void bwd_pv(float (&acc)[64], const float (&a)[8 * J]
     const uint32_t* rows = bt + 16 * j * kHeadDim;
 #pragma unroll
     for (int i0 = 0; i0 < 16; i0 += 4) {
-      float* const d[4] = {acc + 4 * i0, acc + 4 * i0 + 4, acc + 4 * i0 + 8, acc + 4 * i0 + 12};
+      float part[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) part[i] = 0.f;
+      float* const d[4] = {part, part + 4, part + 8, part + 12};
       uint4 b_big[4], b_small[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -1343,6 +1357,8 @@ __device__ __forceinline__ void bwd_pv(float (&acc)[64], const float (&a)[8 * J]
       }
       mma_3xtf32<4>(d, a_big[0], a_small[0], b_big, b_small, 0);
       mma_3xtf32<4>(d, a_big[1], a_small[1], b_big, b_small, 1);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[4 * i0 + i] += part[i];
     }
   }
 }
@@ -1462,140 +1478,108 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ dout,
   }
 }
 
-// ------------------------------------------------------ f32 backward ---
+// dK = scale·dSᵀ·Q and dV = Pᵀ·dO: one CTA of 8 warps × 16 keys per
+// (128-key block, b·h). K and V raw for the block in shared memory (loaded
+// once; a warp's A fragments are float4 reads of its rows, split per use),
+// dK and dV accumulators in registers, the split Q and dO planes of
+// 16-query tiles with the tile's lse and D through a 2-stage cp.async
+// ring. Per tile: Sᵀ = K·Qᵀ; Pᵀ = exp2(Sᵀ·scale·log2 e − lse·log2 e),
+// queries ≥ T masked; dPᵀ = V·dOᵀ; dSᵀ = Pᵀ∘(dPᵀ − D); dV += Pᵀ·dO and
+// dK += dSᵀ·Q with dO and Q read transposed. Keys ≥ T: zero rows, not
+// stored.
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_bwd_dkv_f32(const float* __restrict__ k, const float* __restrict__ v,
+                  const uint32_t* __restrict__ split, const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
+                  int T, int H, int t_pad, Strides sk, Strides sv, Strides sdk, Strides sdv,
+                  float scale_log2, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(smem_raw) + 127) &
+                                       ~uintptr_t(127));
+  float* vs = ks + kF32TileQ * kHeadDim;
+  uint32_t* ring = reinterpret_cast<uint32_t*>(vs + kF32TileQ * kHeadDim);
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int k0 = blockIdx.x * kF32TileQ;
+  const long long plane = static_cast<long long>(gridDim.y) * t_pad * kHeadDim;
+  // Q big, Q small, dO big, dO small: the pre-pass's planes 4-7
+  const uint32_t* tiles = split + 4 * plane + static_cast<long long>(bh) * t_pad * kHeadDim;
+  const float* lb = lse + static_cast<long long>(bh) * T;
+  const float* db = delta + static_cast<long long>(bh) * T;
+  const int n_tiles = (T + kF32BwdTileQ - 1) / kF32BwdTileQ;
+  constexpr int kBlock = kF32BwdTileQ * kHeadDim;  // one plane's rows in a stage
 
-constexpr int kF32BlockQ = 32;   // 128 threads, 4 per query (dQ) or key (dK/dV)
-constexpr int kF32BlockK = 32;
-constexpr int kPer = kHeadDim / 4;  // dims held by each thread
-
-// f32: 4 threads per row, thread `sub` holding dims 16·i + 4·sub + {0..3}
-__device__ __forceinline__ void load_row_f32(float r[kPer], const float* p, bool ok, int sub) {
-#pragma unroll
-  for (int i = 0; i < kPer / 4; ++i) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (ok) x = *reinterpret_cast<const float4*>(p + 16 * i + 4 * sub);
-    r[4 * i] = x.x;
-    r[4 * i + 1] = x.y;
-    r[4 * i + 2] = x.z;
-    r[4 * i + 3] = x.w;
-  }
-}
-
-__device__ __forceinline__ void store_row_f32(float* p, const float r[kPer], float scale, int sub) {
-#pragma unroll
-  for (int i = 0; i < kPer / 4; ++i) {
-    *reinterpret_cast<float4*>(p + 16 * i + 4 * sub) =
-        make_float4(r[4 * i] * scale, r[4 * i + 1] * scale, r[4 * i + 2] * scale,
-                    r[4 * i + 3] * scale);
-  }
-}
-
-// dot product of a register row with a shared-memory row, summed over the
-// four threads of the row (all four end with the same sum)
-__device__ __forceinline__ float dot_row_f32(const float r[kPer], const float* s, int sub) {
-  float dot = 0.f;
-#pragma unroll
-  for (int i = 0; i < kPer / 4; ++i) {
-    const float4 x = *reinterpret_cast<const float4*>(s + 16 * i + 4 * sub);
-    dot = fmaf(r[4 * i], x.x, dot);
-    dot = fmaf(r[4 * i + 1], x.y, dot);
-    dot = fmaf(r[4 * i + 2], x.z, dot);
-    dot = fmaf(r[4 * i + 3], x.w, dot);
-  }
-  dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-  dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-  return dot;
-}
-
-__device__ __forceinline__ void axpy_row_f32(float r[kPer], float a, const float* s, int sub) {
-#pragma unroll
-  for (int i = 0; i < kPer / 4; ++i) {
-    const float4 x = *reinterpret_cast<const float4*>(s + 16 * i + 4 * sub);
-    r[4 * i] = fmaf(a, x.x, r[4 * i]);
-    r[4 * i + 1] = fmaf(a, x.y, r[4 * i + 1]);
-    r[4 * i + 2] = fmaf(a, x.z, r[4 * i + 2]);
-    r[4 * i + 3] = fmaf(a, x.w, r[4 * i + 3]);
-  }
-}
-
-__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src, long long st,
-                                               int r0, int T) {
-  for (int i = threadIdx.x; i < kF32BlockK * (kHeadDim / 4); i += blockDim.x) {
-    const int r = i / (kHeadDim / 4);
-    const int c = (i % (kHeadDim / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < T) x = *reinterpret_cast<const float4*>(src + (r0 + r) * st + c);
-    *reinterpret_cast<float4*>(dst + r * kHeadDim + c) = x;
-  }
-}
-
-__global__ void __launch_bounds__(128) flash_bwd_dkv_f32(BwdArgs a) {
-  __shared__ __align__(16) float qs[kF32BlockK * kHeadDim];
-  __shared__ __align__(16) float dos[kF32BlockK * kHeadDim];
-  __shared__ float lse_s[kF32BlockK];
-  __shared__ float dl_s[kF32BlockK];
-
-  const int T = a.T;
-  const int b = blockIdx.x / a.H;
-  const int h = blockIdx.x % a.H;
-  const int sub = threadIdx.x & 3;
-  const int key = blockIdx.y * kF32BlockK + (threadIdx.x >> 2);
-  const bool ok = key < T;
-  const float* qb = at<float>(a.q, a.sq, b, h);
-  const float* dob = at<float>(a.dout, a.sdo, b, h);
-  const float* lb = a.lse + static_cast<long long>(blockIdx.x) * T;
-  const float* db = a.delta + static_cast<long long>(blockIdx.x) * T;
-
-  float kr[kPer], vr[kPer], dk[kPer], dv[kPer];
-  load_row_f32(kr, at<float>(a.k, a.sk, b, h) + key * a.sk.t, ok, sub);
-  load_row_f32(vr, at<float>(a.v, a.sv, b, h) + key * a.sv.t, ok, sub);
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) dk[i] = dv[i] = 0.f;
-
-  for (int q0 = 0; q0 < T; q0 += kF32BlockK) {
-    __syncthreads();
-    stage_rows_f32(qs, qb, a.sq.t, q0, T);
-    stage_rows_f32(dos, dob, a.sdo.t, q0, T);
-    if (threadIdx.x < kF32BlockK) {
-      const int q = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = q < T ? lb[q] * kLog2e : INFINITY;
-      dl_s[threadIdx.x] = q < T ? db[q] : 0.f;
+  // a stage: the four planes' rows, then lse and D of the tile's queries
+  // (zeros for queries ≥ T, which are masked)
+  auto load_stage = [&](uint32_t* stage, int it) {
+    load_split_rows<kF32BwdTileQ>(stage, tiles + it * kBlock, plane);
+    if (threadIdx.x < 2 * kF32BwdTileQ) {
+      const int q = it * kF32BwdTileQ + threadIdx.x % kF32BwdTileQ;
+      const float* src = threadIdx.x < kF32BwdTileQ ? lb : db;
+      cp_async4_zfill(stage + 4 * kBlock + threadIdx.x, src + (q < T ? q : 0), q < T);
     }
+  };
+  load_raw_rows<kF32TileQ>(ks, k + b * sk.b + h * sk.h, sk.t, k0, T);
+  load_raw_rows<kF32TileQ>(vs, v + b * sv.b + h * sv.h, sv.t, k0, T);
+  load_stage(ring, 0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  const int rd0 = 4 * (tq ^ bwd_swizzle(g));
+  const ASmem k_rows{ks + (16 * w + g) * kHeadDim};
+  const ASmem v_rows{vs + (16 * w + g) * kHeadDim};
+  float dka[64], dva[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dka[i] = dva[i] = 0.f;
+  for (int it = 0; it < n_tiles; ++it) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
-    for (int j = 0; j < kF32BlockK; ++j) {
-      const float s = dot_row_f32(kr, qs + j * kHeadDim, sub);
-      const float dp = dot_row_f32(vr, dos + j * kHeadDim, sub);
-      const float p = exp2f(s * a.scale_log2 - lse_s[j]);
-      axpy_row_f32(dv, p, dos + j * kHeadDim, sub);
-      axpy_row_f32(dk, p * (dp - dl_s[j]), qs + j * kHeadDim, sub);
+    if (it + 1 < n_tiles) load_stage(ring + ((it + 1) % kF32Stages) * kDkvStage, it + 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+    const uint32_t* stage = ring + (it % kF32Stages) * kDkvStage;
+    const float* ls = reinterpret_cast<const float*>(stage + 4 * kBlock);
+    const float* dl = ls + kF32BwdTileQ;
+    float st[8], dpt[8];
+    bwd_scores<2>(st, k_rows, stage + g * kHeadDim, kBlock, rd0);
+    bwd_scores<2>(dpt, v_rows, stage + 2 * kBlock + g * kHeadDim, kBlock, rd0);
+    const int q0 = it * kF32BwdTileQ;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      // st[4n + e]: key g + 8·(e / 2), query 8n + 2tq + e % 2 of the tile
+      const int c = 8 * (i >> 2) + 2 * tq + (i & 1);
+      float p = exp2f(st[i] * scale_log2 - ls[c] * kLog2e);
+      if (q0 + c >= T) p = 0.f;  // queries ≥ T: P = 0
+      st[i] = p;
+      dpt[i] = p * (dpt[i] - dl[c]);
+    }
+    bwd_pv<1>(dva, st, stage + 2 * kBlock, kBlock, g, tq);
+    bwd_pv<1>(dka, dpt, stage, kBlock, g, tq);
+  }
+
+  const int kr0 = k0 + 16 * w + g;
+  const int kr1 = kr0 + 8;
+  float* dkb = dk + b * sdk.b + h * sdk.h;
+  float* dvb = dv + b * sdv.b + h * sdv.h;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int col = 8 * i + 2 * tq;
+    if (kr0 < T) {
+      *reinterpret_cast<float2*>(dkb + kr0 * sdk.t + col) =
+          make_float2(dka[4 * i] * scale, dka[4 * i + 1] * scale);
+      *reinterpret_cast<float2*>(dvb + kr0 * sdv.t + col) = make_float2(dva[4 * i], dva[4 * i + 1]);
+    }
+    if (kr1 < T) {
+      *reinterpret_cast<float2*>(dkb + kr1 * sdk.t + col) =
+          make_float2(dka[4 * i + 2] * scale, dka[4 * i + 3] * scale);
+      *reinterpret_cast<float2*>(dvb + kr1 * sdv.t + col) =
+          make_float2(dva[4 * i + 2], dva[4 * i + 3]);
     }
   }
-  if (!ok) return;
-  store_row_f32(at_mut<float>(a.dk, a.sdk, b, h) + key * a.sdk.t, dk, a.scale, sub);
-  store_row_f32(at_mut<float>(a.dv, a.sdv, b, h) + key * a.sdv.t, dv, 1.f, sub);
-}
-
-// `s`: byte strides (head, time, batch) of the f32 q, k, v, dout, dq, dk, dv
-BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
-                  const void* lse, const void* delta, void* dq, void* dk, void* dv,
-                  int T, int H, const long long* s, float scale) {
-  BwdArgs a;
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.dout = dout;
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
-  a.dq = dq;
-  a.dk = dk;
-  a.dv = dv;
-  Strides* all[7] = {&a.sq, &a.sk, &a.sv, &a.sdo, &a.sdq, &a.sdk, &a.sdv};
-  for (int i = 0; i < 7; ++i) *all[i] = Strides{s[3 * i + 2] / 4, s[3 * i + 1] / 4, s[3 * i] / 4};
-  a.T = T;
-  a.H = H;
-  a.scale = scale;
-  a.scale_log2 = scale * kLog2e;
-  return a;
 }
 
 // -------------------------------------------------------------- host ---
@@ -1749,7 +1733,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     const SplitRowsArgs sa{{static_cast<const float*>(k), static_cast<const float*>(v),
                             static_cast<const float*>(q), static_cast<const float*>(dout)},
                            {elem_strides(strides + 3, 4), elem_strides(strides + 6, 4), sq, sdo}};
-    flash_split_rows_f32<<<dim3(t_pad / kF32BwdTileK, B * H, 2), 256, 0, st>>>(sa, split, T, H,
+    flash_split_rows_f32<<<dim3(t_pad / kF32BwdTileK, B * H, 4), 256, 0, st>>>(sa, split, T, H,
                                                                               t_pad);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1762,8 +1746,16 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
         T, H, t_pad, sq, sdo, elem_strides(strides + 12, 4), scale * kLog2e, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    const BwdArgs a = make_args(q, k, v, dout, lse, delta, dq, dk, dv, T, H, strides, scale);
-    flash_bwd_dkv_f32<<<dim3(B * H, (T + kF32BlockK - 1) / kF32BlockK), 128, 0, st>>>(a);
+    err = cudaFuncSetAttribute(flash_bwd_dkv_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kDkvSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_dkv_f32<<<dim3((T + kF32TileQ - 1) / kF32TileQ, B * H), kF32Threads, kDkvSmem,
+                        st>>>(
+        static_cast<const float*>(k), static_cast<const float*>(v), split,
+        static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dk),
+        static_cast<float*>(dv), T, H, t_pad, elem_strides(strides + 3, 4),
+        elem_strides(strides + 6, 4), elem_strides(strides + 15, 4), elem_strides(strides + 18, 4),
+        scale * kLog2e, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1773,4 +1765,6 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
 // Dynamic shared memory of f32 backward kernel `kernel` (0 = the pre-pass
 // flash_split_rows_f32, 1 = flash_bwd_dq_f32, 2 = flash_bwd_dkv_f32), in
 // bytes: what each launch asks for.
-extern "C" int flash_attention_bwd_f32_smem(int kernel) { return kernel == 1 ? kDqSmem : 0; }
+extern "C" int flash_attention_bwd_f32_smem(int kernel) {
+  return kernel == 1 ? kDqSmem : kernel == 2 ? kDkvSmem : 0;
+}
