@@ -39,10 +39,12 @@ Training (the third slice) adds:
   2b. monotonic alignment search (K4) against its plain version: exactly
      equal paths and sum(path) == t_y per item, at bench_train's batch,
      ESD's long buckets and ragged lengths; the flash-attention backward
-     (bf16: one pass and the dQ convert; f32: dK/dV and dQ kernels) and
-     the forward's log-sum-exp against the plain backward, bf16 and f32,
-     at the train step's and the synthesis shape and ragged T, timed
-     against SDPA's forward alone, backward alone and forward + backward;
+     (bf16: one pass and the dQ convert; f32: the split pre-pass, dQ
+     and dK/dV kernels) and the forward's log-sum-exp against the plain
+     backward, bf16 and f32, at the train step's and the synthesis shape
+     and ragged T, timed against SDPA's forward alone, backward alone and
+     forward + backward; the f32 kernels' device times from
+     torch.profiler, and two f32 calls on the same inputs bit-identical;
   3c. one train step (losses and every gradient) of a depth-cut DeX at
      full width, card against CPU, f32, attention "flash", with the same
      draws and a planted alignment; CPU controls with the MAS path

@@ -105,14 +105,16 @@
 //       b·h), Q raw in registers (64 a thread, split per tile), the dQ
 //       accumulator (64), S and dP (16 + 16), B fragments (32); dO raw for
 //       the 128 queries in shared memory (64 KB, loaded once) and 32-key
-//       K/V split tiles through a 2-stage cp.async ring (2 × 64 KB). Per
+//       K/V split tiles through a 2-stage cp.async ring (2 × 64 KB;
+//       196,736 bytes of dynamic shared memory in all). Per
 //       tile S = Q·Kᵀ, P = exp2(S·scale·log2 e − lse·log2 e) with keys ≥ T
 //       masked, dP = dO·Vᵀ, dS = P∘(dP − D), dQ += dS·K (K read
 //       transposed).
 //     - dK/dV (flash_bwd_dkv_f32): per (128-key block, b·h), K and V raw in
 //       shared memory (2 × 64 KB, loaded once; not registers, which dK and
 //       dV fill: 64 + 64 a thread), 16-query Q/dO split tiles with their
-//       lse and D through a 2-stage ring (2 × 32 KB). Per tile Sᵀ = K·Qᵀ,
+//       lse and D through a 2-stage ring (2 × 32 KB; 196,992 bytes in
+//       all). Per tile Sᵀ = K·Qᵀ,
 //       dPᵀ = V·dOᵀ (8 + 8 registers), Pᵀ with queries ≥ T masked, dSᵀ,
 //       then dV += Pᵀ·dO and dK += dSᵀ·Q (dO, Q read transposed).
 //     The products over rows sum each pair of k-steps into a zeroed partial
