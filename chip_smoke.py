@@ -12,8 +12,9 @@ Phases (each asserts; any failure exits non-zero):
      flash attention at the main path's shape and at ragged lengths; the
      anti-aliased snake in bf16 (polynomial sin², the TPU's fold kernel)
      and f32 (exact sine, the TPU's tiled kernel) at BigVGAN's six stage
-     shapes of request 1, at ragged T and C, at k = 8 and 16, and on a
-     contiguous (B, T, C) input; the library yardstick pinned to the SDPA
+     shapes of request 1, at ragged T and C, at T on the kernel's
+     schedule boundaries, at k = 8 and 16, and on contiguous, offset
+     (unaligned) and gapped (not dense) inputs; the library yardstick pinned to the SDPA
      backend the default dispatch picks, with its error against the plain
      version; f32 bounds at the faster of FMA and 3xTF32;
   2a. the f32 route: a bf16 MHSA under attention "flash" launches the f32
@@ -87,6 +88,10 @@ SNAKE_STAGES = [(16, 3072, 768), (16, 12288, 384), (16, 24576, 192),
                 (16, 49152, 96), (16, 98304, 48), (16, 196608, 24)]
 SNAKE_STAGE_LAUNCHES = [18, 18, 18, 18, 18, 19]
 SNAKE_LAUNCHES = sum(SNAKE_STAGE_LAUNCHES)  # 109
+# the snake kernel's per-call time before its redesign (one block of 128
+# threads per 1024-output tile, staged in shared memory): this script on
+# an NVIDIA H100 80GB HBM3 at 700 W, before csrc/snake.cu's segment walk
+SNAKE_EARLIER_DESIGN_MS = {torch.bfloat16: 28.724, torch.float32: 38.976}
 # random weights: the duration predictor is pinned to 4 frames per token
 # (blanks included, so 8 frames ≈ 93 ms per phoneme); the longest of
 # SENTENCES then lands in the 768-frame bucket and none is cut
@@ -600,18 +605,27 @@ def snake_bound_ms(b, t, c, dtype, k=12) -> tuple[float, float]:
     return 2 * n * elem / PEAK_BYTES * 1e3, n * (4 * k + 46) / PEAK_FLOPS[torch.float32] * 1e3
 
 
-def snake_inputs(b, t, c, dtype, seed, contiguous=False):
+def snake_inputs(b, t, c, dtype, seed, layout="bct"):
     """x as BigVGAN hands it over, a (B, T, C) transpose of a (B, C, T)
-    buffer (or a contiguous (B, T, C) tensor), with alpha and inv_beta as
-    logscale snakebeta parameters near the reference's, in x's dtype."""
+    buffer, with alpha and inv_beta as logscale snakebeta parameters near
+    the reference's, in x's dtype. Other layouts: "contiguous", a
+    (B, T, C) tensor; "offset", the (B, C, T) buffer one element into its
+    storage (dense, rows not 16-byte aligned); "gapped", rows of T taken
+    one element into rows of T + 1 (not dense, not aligned)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    if contiguous:
-        x = 2 * torch.randn((b, t, c), generator=g, device="cuda")
+    if layout == "contiguous":
+        x = 2 * torch.randn((b, t, c), generator=g, device="cuda").to(dtype)
+    elif layout == "offset":
+        x = (2 * torch.randn(b * c * t + 1, generator=g, device="cuda")).to(dtype)
+        x = x[1:].view(b, c, t).transpose(1, 2)
+    elif layout == "gapped":
+        x = (2 * torch.randn((b, c, t + 1), generator=g, device="cuda")).to(dtype)
+        x = x[..., 1:].transpose(1, 2)
     else:
-        x = 2 * torch.randn((b, c, t), generator=g, device="cuda").transpose(1, 2)
+        x = (2 * torch.randn((b, c, t), generator=g, device="cuda")).to(dtype).transpose(1, 2)
     alpha = torch.exp(0.3 * torch.randn(c, generator=g, device="cuda"))
     inv_beta = 1.0 / (torch.exp(0.3 * torch.randn(c, generator=g, device="cuda")) + 1e-9)
-    return x.to(dtype), alpha.to(dtype), inv_beta.to(dtype)
+    return x, alpha.to(dtype), inv_beta.to(dtype)
 
 
 def phase_snake():
@@ -621,24 +635,33 @@ def phase_snake():
     from dex_tts_tpu_torch.ops.snake import snake_antialias, snake_antialias_reference
 
     ragged = [(2, t, c) for t in (1, 2, 17, 777) for c in (3, 24)]
+    # T on the kernel's schedule boundaries (csrc/snake.cu): q, a run of 8
+    # outputs ± 1, a warp's chunk of 256 ± 1, a segment of 4096 ± 1, two
+    # segments ± 1
+    boundary = [(2, t, 3) for t in (3, 7, 8, 9, 255, 256, 257, 4095, 4096, 4097, 8191, 8193)]
     report = {}
     for dtype, impl, fast, tol_name in ((torch.bfloat16, "auto", True, "8e-3 x max|y|"),
                                         (torch.float32, "pallas", False, "atol 2e-5")):
         worst = 0.0
-        cases = ([(shape, 12, False) for shape in SNAKE_STAGES + ragged]
-                 + [((2, 777, 24), k, False) for k in (8, 16)]
-                 + [((2, 777, 24), 12, True), ((4, 4096, 96), 12, True)])
-        for i, (shape, k, contiguous) in enumerate(cases):
-            x, al, ib = snake_inputs(*shape, dtype, seed=i, contiguous=contiguous)
+        cases = ([(shape, 12, "bct") for shape in SNAKE_STAGES + ragged]
+                 + [((2, 777, 24), k, "bct") for k in (8, 16)]
+                 + [((2, 777, 24), 12, "contiguous"), ((4, 4096, 96), 12, "contiguous")]
+                 + [(shape, 12, "bct") for shape in boundary]
+                 + [((2, 4097, 3), k, "bct") for k in (8, 16)]
+                 + [((2, 777, 24), 12, "offset"), ((4, 4096, 96), 12, "offset"),
+                    ((2, 4097, 3), 12, "gapped")])
+        for i, (shape, k, layout) in enumerate(cases):
+            x, al, ib = snake_inputs(*shape, dtype, seed=i, layout=layout)
             got = snake_antialias(x, al, ib, kernel_size=k, impl=impl)
             want = snake_antialias_reference(x, al, ib, k, fast)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             bound = 8e-3 * want.float().abs().max().item() if dtype == torch.bfloat16 else 2e-5
-            log(f"snake {dtype} {shape} k={k}{' contiguous' if contiguous else ''}:"
+            log(f"snake {dtype} {shape} k={k}{'' if layout == 'bct' else ' ' + layout}:"
                 f" max_abs_err {err:.3e} (bound {bound:.3e})")
             assert got.dtype == x.dtype and got.shape == x.shape, (got.dtype, got.shape)
-            assert got.stride() == x.stride(), (got.stride(), x.stride())
+            if layout != "gapped":  # a dense x: the output keeps its strides
+                assert got.stride() == x.stride(), (got.stride(), x.stride())
             assert math.isfinite(err) and err <= bound, (dtype, shape, k, err, bound)
             worst = max(worst, err)
         stages = []
@@ -650,8 +673,10 @@ def phase_snake():
             stages.append(dict(shape=list(shape), launches=n, ms=ms, plain_ms=plain_ms,
                                bound_ms=max(t_bytes, t_ops),
                                bound_by="operations" if t_ops >= t_bytes else "bytes"))
+            stages[-1]["bound_share"] = stages[-1]["bound_ms"] / ms
             log(f"snake {dtype} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-                f" bound {max(t_bytes, t_ops):.4f} ms ({stages[-1]['bound_by']})")
+                f" bound {max(t_bytes, t_ops):.4f} ms ({stages[-1]['bound_by']}),"
+                f" {100 * stages[-1]['bound_share']:.1f}% of the bound")
         # one generator call: each stage's time × its launches
         per_call = {key: sum(st[key] * st["launches"] for st in stages)
                     for key in ("ms", "plain_ms", "bound_ms")}
@@ -663,7 +688,9 @@ def phase_snake():
                              stages=stages, **per_call)
         log(f"snake {dtype}, one generator call ({SNAKE_LAUNCHES} launches): kernel"
             f" {per_call['ms']:.3f} ms, plain {per_call['plain_ms']:.3f} ms,"
-            f" bound {per_call['bound_ms']:.3f} ms")
+            f" bound {per_call['bound_ms']:.3f} ms,"
+            f" {100 * per_call['bound_ms'] / per_call['ms']:.1f}% of the bound"
+            f" (earlier design {SNAKE_EARLIER_DESIGN_MS[dtype]} ms)")
     return report
 
 
@@ -1305,11 +1332,13 @@ def main():
         "bound_ms": sb["bound_ms"],
         "bound_by": sb["bound_by"],
         "library_ms": None,  # no single PyTorch call computes up → snake → down
+        "earlier_design_ms": SNAKE_EARLIER_DESIGN_MS[torch.bfloat16],
         "per": f"generator call ({SNAKE_LAUNCHES} launches at request 1's stage shapes)",
         "dtype": "bfloat16",
         "stages": sb["stages"],
         "max_abs_err_f32": sf["max_abs_err"],
         "f32": {**{k: sf[k] for k in timing_keys}, "stages": sf["stages"],
+                "earlier_design_ms": SNAKE_EARLIER_DESIGN_MS[torch.float32],
                 "launches_card_vs_cpu": snake_f32_run["launches"],
                 "card_vs_cpu_wav_err": snake_f32_run["max_abs_err"]},
         "card": card,

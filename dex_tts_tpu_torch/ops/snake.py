@@ -38,7 +38,13 @@ FAST_SIN_IMPLS = ("auto", "fold", "foldb")
 KERNEL_SIZES = (8, 12, 16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HALF = 8  # taps per polyphase branch the kernel holds (k ≤ 16)
-_GRID_YZ_MAX = 65535  # C and B are the kernel's grid y and z
+# the kernel's schedule (csrc/snake.cu): a warp walks a segment of at
+# most SEGMENT_CHUNKS chunks of one (b, c) row, a chunk being 32 runs of
+# RUN outputs, one run per lane; WARPS warps per block
+RUN = 8
+CHUNK = 32 * RUN
+SEGMENT_CHUNKS = 16
+WARPS = 4
 
 
 def kaiser_sinc_filter(cutoff: float, half_width: float, kernel_size: int):
@@ -170,7 +176,8 @@ def _check(x, k):
     if k not in KERNEL_SIZES:
         raise ValueError(f"the snake kernel takes kernel_size in {KERNEL_SIZES}, got {k}")
     b, t, c = x.shape
-    if b > _GRID_YZ_MAX or c > _GRID_YZ_MAX or t >= 2**31 - 2**16:
+    n_segs = -(-(-(-t // CHUNK)) // SEGMENT_CHUNKS)
+    if t > 2**31 - 1 - CHUNK - 4 or -(-b * c * n_segs // WARPS) > 2**31 - 1:
         raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's grid")
 
 
