@@ -88,10 +88,6 @@ SNAKE_STAGES = [(16, 3072, 768), (16, 12288, 384), (16, 24576, 192),
                 (16, 49152, 96), (16, 98304, 48), (16, 196608, 24)]
 SNAKE_STAGE_LAUNCHES = [18, 18, 18, 18, 18, 19]
 SNAKE_LAUNCHES = sum(SNAKE_STAGE_LAUNCHES)  # 109
-# the snake kernel's per-call time before its redesign (one block of 128
-# threads per 1024-output tile, staged in shared memory): this script on
-# an NVIDIA H100 80GB HBM3 at 700 W, before csrc/snake.cu's segment walk
-SNAKE_EARLIER_DESIGN_MS = {torch.bfloat16: 28.724, torch.float32: 38.976}
 # random weights: the duration predictor is pinned to 4 frames per token
 # (blanks included, so 8 frames ≈ 93 ms per phoneme); the longest of
 # SENTENCES then lands in the 768-frame bucket and none is cut
@@ -689,8 +685,7 @@ def phase_snake():
         log(f"snake {dtype}, one generator call ({SNAKE_LAUNCHES} launches): kernel"
             f" {per_call['ms']:.3f} ms, plain {per_call['plain_ms']:.3f} ms,"
             f" bound {per_call['bound_ms']:.3f} ms,"
-            f" {100 * per_call['bound_ms'] / per_call['ms']:.1f}% of the bound"
-            f" (earlier design {SNAKE_EARLIER_DESIGN_MS[dtype]} ms)")
+            f" {100 * per_call['bound_ms'] / per_call['ms']:.1f}% of the bound")
     return report
 
 
@@ -1332,13 +1327,11 @@ def main():
         "bound_ms": sb["bound_ms"],
         "bound_by": sb["bound_by"],
         "library_ms": None,  # no single PyTorch call computes up → snake → down
-        "earlier_design_ms": SNAKE_EARLIER_DESIGN_MS[torch.bfloat16],
         "per": f"generator call ({SNAKE_LAUNCHES} launches at request 1's stage shapes)",
         "dtype": "bfloat16",
         "stages": sb["stages"],
         "max_abs_err_f32": sf["max_abs_err"],
         "f32": {**{k: sf[k] for k in timing_keys}, "stages": sf["stages"],
-                "earlier_design_ms": SNAKE_EARLIER_DESIGN_MS[torch.float32],
                 "launches_card_vs_cpu": snake_f32_run["launches"],
                 "card_vs_cpu_wav_err": snake_f32_run["max_abs_err"]},
         "card": card,

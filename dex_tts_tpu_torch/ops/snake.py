@@ -40,11 +40,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HALF = 8  # taps per polyphase branch the kernel holds (k ≤ 16)
 # the kernel's schedule (csrc/snake.cu): a warp walks a segment of at
 # most SEGMENT_CHUNKS chunks of one (b, c) row, a chunk being 32 runs of
-# RUN outputs, one run per lane; WARPS warps per block
+# RUN outputs, one run per lane
 RUN = 8
 CHUNK = 32 * RUN
 SEGMENT_CHUNKS = 16
-WARPS = 4
 
 
 def kaiser_sinc_filter(cutoff: float, half_width: float, kernel_size: int):
@@ -146,17 +145,22 @@ def snake_antialias_reference(x, alpha, inv_beta, kernel_size: int = 12,
     return y.to(x.dtype).transpose(1, 2)
 
 
-@functools.cache
-def _kernel():
-    from dex_tts_tpu_torch.ops.kernels import load_library
-
-    fn = load_library("snake.cu").snake_antialias_fwd
+def _bind(lib: ctypes.CDLL):
+    """The C entry point of a built snake.cu, with its signature."""
+    fn = lib.snake_antialias_fwd
     fn.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
         + [ctypes.c_void_p, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _kernel():
+    from dex_tts_tpu_torch.ops.kernels import load_library
+
+    return _bind(load_library("snake.cu"))
 
 
 @functools.cache
@@ -175,10 +179,8 @@ def _check(x, k):
         raise ValueError(f"x must be (B, T, C), got {tuple(x.shape)}")
     if k not in KERNEL_SIZES:
         raise ValueError(f"the snake kernel takes kernel_size in {KERNEL_SIZES}, got {k}")
-    b, t, c = x.shape
-    n_segs = -(-(-(-t // CHUNK)) // SEGMENT_CHUNKS)
-    if t > 2**31 - 1 - CHUNK - 4 or -(-b * c * n_segs // WARPS) > 2**31 - 1:
-        raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's grid")
+    if max(x.shape) > 2**31 - 1:  # B, T, C reach the launcher as C ints
+        raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's int sizes")
 
 
 def snake_antialias(
@@ -226,6 +228,7 @@ def snake_antialias(
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
+        # 1 is also the launcher's refusal of a grid beyond its limits
         raise RuntimeError(f"snake_antialias launch failed: CUDA error {err}")
     snake_antialias.launches += 1
     return y

