@@ -39,7 +39,10 @@ Phases (each asserts; any failure exits non-zero):
 Training (the third slice) adds:
   2b. monotonic alignment search (K4) against its plain version: exactly
      equal paths and sum(path) == t_y per item, at bench_train's batch,
-     ESD's long buckets and ragged lengths; the flash-attention backward
+     ESD's long buckets, ragged lengths and on each side of every route
+     boundary of the kernel (warp route | wide route: Tx = 512 | 513, Ty
+     whose bits fit shared memory or not, Ty % 4 ≠ 0 on each), with its
+     device and wall times and no ptxas spills; the flash-attention backward
      (bf16: one pass and the dQ convert; f32: the split pre-pass, dQ
      and dK/dV kernels) and the forward's log-sum-exp against the plain
      backward, bf16 and f32, at the train step's and the synthesis shape
@@ -545,46 +548,74 @@ def mas_inputs(b, t_x, t_y, lengths, seed):
 def phase_mas():
     """K4 against its plain version on the card: exactly equal paths and
     sum(path) == t_y per item (checked on the host) at bench_train's
-    shape, at ESD's longest buckets and at ragged lengths (t_x = 1,
-    t_x = t_y, t_y < Ty); kernel, plain and bound times (the wrapper timed
-    with the guard off: a direct call with it on reads its check to the
-    host, which a train step does not). → (report, largest |path −
-    plain path| over the cases)."""
-    from dex_tts_tpu_torch.ops.mas import maximum_path, maximum_path_scan, set_mas_guard
+    shape, at ESD's longest buckets, at ragged lengths (t_x = 1,
+    t_x = t_y, t_y < Ty), and on each side of every route boundary
+    (csrc/mas.cu: Tx = 512 | 513; Ty whose bits fit shared memory or not;
+    Ty % 4 ≠ 0 on each route), the launcher's route checked against
+    `ops.mas.plan`. Each case's device time (torch.profiler) beside the
+    wrapper's wall time (CUDA events; the guard off: a direct call with it
+    on reads its check to the host, which a train step does not) and the
+    bound; the plain version's time at MAS_SHAPES. → (report by shape,
+    largest |path − plain path| over the cases)."""
+    from dex_tts_tpu_torch.ops.mas import (kernel_plan, maximum_path, maximum_path_scan, plan,
+                                           set_mas_guard)
 
     rng = np.random.default_rng(9)
     long_lengths = [(int(rng.integers(1, 257)), 0) for _ in range(32)]
     long_lengths = [(lx, int(rng.integers(lx, 1025))) for lx, _ in long_lengths]
     ragged = [(1, 1), (1, 40), (9, 9), (20, 20), (5, 37), (20, 60), (13, 64), (2, 3)]
     cases = [((32, 96, 256), [(96, 256)] * 32), ((32, 256, 1024), long_lengths),
-             ((8, 20, 64), ragged), ((3, 300, 700), [(300, 700), (1, 5), (299, 300)])]
+             ((8, 20, 64), ragged), ((3, 300, 700), [(300, 700), (1, 5), (299, 300)]),
+             # route boundaries: tokens (K ≤ 16), shared memory, Ty % 4 ≠ 0
+             ((2, 512, 700), [(512, 700), (300, 650)]), ((2, 513, 700), [(513, 700), (400, 699)]),
+             ((2, 256, 5000), [(256, 5000), (200, 4001)]),
+             ((2, 256, 6000), [(256, 6000), (255, 5999)]),
+             ((4, 96, 257), [(96, 257), (95, 256), (1, 3), (96, 96)]),
+             ((2, 600, 1401), [(600, 1401), (333, 1000)])]
     max_abs_err = 0.0
+    report = {}
     for (b, t_x, t_y), lengths in cases:
+        route = plan(t_x, t_y)
+        assert kernel_plan(t_x, t_y) == route, (kernel_plan(t_x, t_y), route)
         value, mask = mas_inputs(b, t_x, t_y, lengths, seed=t_y)
+        counted = dict(maximum_path.launches_by_route)
         got = maximum_path(value, mask)
+        counted[route[0]] += 1
+        assert maximum_path.launches_by_route == counted, (maximum_path.launches_by_route, route)
         want = maximum_path_scan(value, mask)
         torch.cuda.synchronize()
         same = torch.equal(got, want)
         max_abs_err = max(max_abs_err, (got - want).abs().max().item())
         counts = got.sum((1, 2)).cpu().tolist()
-        log(f"mas {(b, t_x, t_y)}: paths equal {same}, sum(path) == t_y"
+        log(f"mas {(b, t_x, t_y)} route {route[0]} (K {route[1]}, tile {route[2]} frames,"
+            f" {route[3]} bytes of shared memory): paths equal {same}, sum(path) == t_y"
             f" {counts == [float(ly) for _, ly in lengths]}")
         assert same, (b, t_x, t_y)
         assert counts == [float(ly) for _, ly in lengths], (counts, lengths)
-    report = {}
-    for shape in MAS_SHAPES:
-        value, mask = mas_inputs(*shape, [shape[1:]] * shape[0], seed=1)
         set_mas_guard(False)
         try:
             ms = time_ms(lambda: maximum_path(value, mask), 20)
+            for _ in range(3):  # a trace now and then holds no device activity
+                device = kernel_device_ms(lambda: maximum_path(value, mask),
+                                          ("mas_warp", "mas_wide"))
+                device_ms = device[f"mas_{route[0]}"]
+                if device_ms is not None:
+                    break
         finally:
             set_mas_guard(True)
-        plain_ms = time_ms(lambda: maximum_path_scan(value, mask), 2, warmup=1)
+        assert device_ms is not None, device
         bound_ms = 3 * 4 * value.numel() / PEAK_BYTES * 1e3  # value, mask read; path written
-        report[shape] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-                             library_ms=None)
-        log(f"mas at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms"
-            f" (bytes), {ms / shape[2] * 1e3:.3f} us per frame")
+        report[(b, t_x, t_y)] = dict(ms=ms, device_ms=device_ms, bound_ms=bound_ms,
+                                     bound_by="bytes", library_ms=None, route=route[0])
+        log(f"mas at {(b, t_x, t_y)}: device {device_ms:.4f} ms ({device_ms / t_y * 1e6:.1f} ns"
+            f" per frame), wrapper {ms:.4f} ms per call, bound {bound_ms:.4f} ms (bytes),"
+            f" route {route[0]}")
+    for shape in MAS_SHAPES:
+        value, mask = mas_inputs(*shape, [shape[1:]] * shape[0], seed=1)
+        r = report[shape]
+        r["plain_ms"] = time_ms(lambda: maximum_path_scan(value, mask), 2, warmup=1)
+        log(f"mas at {shape}: device {r['device_ms']:.4f} ms, wrapper {r['ms']:.4f} ms,"
+            f" plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes)")
     return report, max_abs_err
 
 
@@ -1211,6 +1242,10 @@ def main():
     for line in bwd_f32_build:
         log(f"f32 backward (3xTF32) build: {line}")
     log(f"f32 backward dynamic shared memory (bytes): {bwd_smem}")
+    mas_build = resource_usage("mas.cu")
+    assert mas_build and all("0 bytes spill stores" in line and "0 bytes spill loads" in line
+                             for line in mas_build), mas_build
+    log(f"mas.cu (K4): no spills in any of its {len(mas_build)} kernels")
 
     report = phase_kernels()
     route = phase_route()
@@ -1303,7 +1338,9 @@ def main():
         "launches": train["flash_bf16"]["launches"]["maximum_path"],
         "launches_by_path": {k: v["maximum_path"] for k, v in train_launches.items()},
         "max_abs_err": mas_err,
-        "ms": mas[MAS_SHAPES[0]]["ms"],
+        "ms": mas[MAS_SHAPES[0]]["ms"],  # the wrapper's wall time per call
+        "device_ms": mas[MAS_SHAPES[0]]["device_ms"],  # the kernel's, torch.profiler
+        "route": mas[MAS_SHAPES[0]]["route"],
         "plain_ms": mas[MAS_SHAPES[0]]["plain_ms"],
         "bound_ms": mas[MAS_SHAPES[0]]["bound_ms"],
         "bound_by": mas[MAS_SHAPES[0]]["bound_by"],

@@ -2,7 +2,12 @@
 its plain PyTorch version (port of dex_tts_tpu/ops/mas.py).
 
 Replaces the TPU kernel dex_tts_tpu/ops/mas.py `_mas_kernel`, launched by
-`maximum_path_pallas`. `maximum_path` takes the plain version
+`maximum_path_pallas`. The kernel has two routes, chosen by shape alone
+(`plan`, which mirrors the launcher's own `maximum_path_mas_plan`): one DP
+warp per item with the column in registers and the bits in shared memory
+for Tx ≤ 512 when they fit, a block per item with a barrier per frame
+otherwise; `maximum_path.launches_by_route` counts them. `maximum_path`
+takes the plain version
 (`maximum_path_scan`, a loop over frames) for CPU tensors and launches the
 kernel for CUDA tensors, whatever the backend setting: the JAX package's
 reasons to default to its scan form (GSPMD partitioning, a v5e custom-call
@@ -132,33 +137,86 @@ def maximum_path_scan(value, mask):
     return path * mask
 
 
+# K4's routes (csrc/mas.cu, `maximum_path_mas_plan`), mirrored for the
+# wrapper's count and the CPU emulation of the schedule: the warp route for
+# Tx ≤ MAX_WARP_TX when its ring, bits and idx fit SMEM_BUDGET, the wide
+# route for every other shape
+SMEM_BUDGET = 227 * 1024
+MAX_WARP_TX = 512
+WARP_KS = (1, 2, 3, 4, 6, 8, 12, 16)
+WARPS = 3  # a warp-route block: the DP warp, the copying warp, the zeroing warp
+STAGES = 3  # ring tiles of the warp route
+MAX_TILE_F = 32  # frames per ring tile
+WIDE_THREADS = 256
+MAX_TILE_Y = 32
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def plan(t_x: int, t_y: int) -> tuple[str, int, int, int]:
+    """K4's route for a (Tx, Ty) shape, as the launcher chooses it:
+    ("warp", K tokens per lane, F frames per ring tile, shared bytes) or
+    ("wide", 0, frames per staged tile, shared bytes); ("none", 0, 0, 0)
+    where no route fits."""
+    if t_x <= 0 or t_y <= 0:
+        return "none", 0, 0, 0
+    if t_x <= MAX_WARP_TX:
+        k = next(k for k in WARP_KS if 32 * k >= t_x)
+        # mbarriers, bits and idx (Ty rounded up to 4 frames), the sums, a flag
+        fixed = 16 * STAGES + 4 * (_round4(t_y) * k + _round4(t_y) + 2 * WARPS + 1)
+        per_frame = 4 * 2 * STAGES * 32 * k  # value and mask, every stage
+        f = min((SMEM_BUDGET - fixed) // per_frame, MAX_TILE_F, _round4(t_y)) & ~3
+        if f >= 4:
+            return "warp", k, f, fixed + per_frame * f
+    fixed = 4 * (2 * t_x + _round4(t_y))
+    per_frame = 4 * (t_x + 1)
+    fit = (SMEM_BUDGET - 4 * 2 * WIDE_THREADS // 32 - fixed) // per_frame
+    if fit < 1:
+        return "none", 0, 0, 0
+    tile_y = min(fit, MAX_TILE_Y)
+    return "wide", 0, tile_y, fixed + per_frame * tile_y
+
+
 @functools.cache
-def _kernel():
+def _library():
+    """The loaded `csrc/mas.cu`, its entry points given their signatures."""
     from dex_tts_tpu_torch.ops.kernels import load_library
 
-    fn = load_library("mas.cu").maximum_path_mas
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = load_library("mas.cu")
+    lib.maximum_path_mas.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.maximum_path_mas.restype = ctypes.c_int
+    lib.maximum_path_mas_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.maximum_path_mas_plan.restype = None
+    return lib
+
+
+def kernel_plan(t_x: int, t_y: int) -> tuple[str, int, int, int]:
+    """The compiled launcher's own plan for (Tx, Ty), in `plan`'s form
+    (loads the library, so it needs the card)."""
+    out = (ctypes.c_int * 4)()
+    _library().maximum_path_mas_plan(t_x, t_y, out)
+    return {0: "warp", 1: "wide"}.get(out[0], "none"), out[1], out[2], out[3]
 
 
 def _launch(value, mask):
     """One K4 launch: f32 contiguous (B, Tx, Ty) value and mask → the f32
-    path, written in full; a (B, Ty, Tx) byte scratch holds the
-    "diagonal beats stay" bits."""
+    path, written in full (the wide route keeps its bits in the path's
+    buffer until it writes the path; the warp route in shared memory)."""
     b, t_x, t_y = value.shape
     value = value.float().contiguous()
     mask = mask.float().contiguous()
     path = torch.empty((b, t_x, t_y), dtype=torch.float32, device=value.device)
-    bits = torch.empty((b, t_y, t_x), dtype=torch.uint8, device=value.device)
     with torch.cuda.device(value.device):
-        err = _kernel()(
-            value.data_ptr(), mask.data_ptr(), path.data_ptr(), bits.data_ptr(),
-            b, t_x, t_y, torch.cuda.current_stream(value.device).cuda_stream,
+        err = _library().maximum_path_mas(
+            value.data_ptr(), mask.data_ptr(), path.data_ptr(), b, t_x, t_y,
+            torch.cuda.current_stream(value.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"maximum_path launch failed: CUDA error {err}")
     maximum_path.launches += 1
+    maximum_path.launches_by_route[plan(t_x, t_y)[0]] += 1
     return path
 
 
@@ -187,4 +245,5 @@ def maximum_path(value, mask, return_errors: bool = False):
     return path
 
 
-maximum_path.launches = 0
+maximum_path.launches = 0  # all launches; by route below
+maximum_path.launches_by_route = {"warp": 0, "wide": 0}

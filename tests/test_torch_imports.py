@@ -50,6 +50,7 @@ def test_source_names_no_jax_or_jax_package():
         re.M,
     )
     files = [os.path.join(REPO, "chip_smoke.py")]
+    files += [os.path.join(REPO, "scripts", n) for n in ("ab_mas.py", "ab_snake.py", "profile_port.py")]
     for root, _, names in os.walk(PKG_DIR):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     for path in files:
