@@ -23,7 +23,8 @@ Phases (each asserts; any failure exits non-zero):
      attention "flash", ≥ 768 DiT tokens) once on the CPU (plain version)
      and once on the card (kernel), f32 with TF32 off, same noise; a CPU
      run with the attention output zeroed shows that the bound separates
-     a broken kernel;
+     a broken kernel; the same under DPM-Solver++(2M) (4 steps) and the
+     DiT cache (4 steps, k = 2), whose mel differs from the exact one;
   3b. the same for the full-width BigVGAN in f32 on a short mel: CPU
      (plain snake) against the card (snake kernel), and a CPU run with
      every snake replaced by its input;
@@ -32,7 +33,8 @@ Phases (each asserts; any failure exits non-zero):
      HiFi-GAN, 50 euler steps at temperature 1.5, first 16 sentences in
      the 768-frame bucket (warm-up call, then one timed), then 3 sentences
      (padded to 4) with their own reference features (warm-up call, then
-     five timed);
+     five timed); then, per call, request 1 under dpmpp2m at 16 steps and
+     under the DiT cache at k = 5, and request 2 with vocode=False;
   4b. the same two requests through the same DeX + BigVGAN (bf16, full
      width), with reference WAV files that the script writes itself
      (`tts(ref_wavs=...)`: trim, resample, log-mel, lf0).
@@ -58,20 +60,28 @@ Training (the third slice) adds:
      (einsum at 880 tokens) and "flash_bf16", launch counts asserted;
   6. `Trainer.fit` through the train entry point on a dataset the script
      writes, checkpoints, and a resume that repeats the next step.
+The port's benches add:
+  7. `dex_tts_tpu_torch.bench` (in-process, PyTorch's TF32 defaults) at
+     its defaults, `--solver dpmpp2m --steps 16`, `--dit_cache 5` and
+     `--family gedex --vocoder bigvgan`, and `dex_tts_tpu_torch.bench_train`
+     at its defaults: each JSON line logged, the launches of each asserted.
 The last two lines are the `kernels` JSON line and the device JSON line.
 Needs one card; exits non-zero without CUDA.
 """
 
 import contextlib
+import io
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from dex_tts_tpu_torch.bench_train import synthetic_batch
+from dex_tts_tpu_torch.utils.device import card_line
 
 # H100 SXM data-sheet peaks (dense); f32 is FMA on the CUDA cores
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -180,13 +190,6 @@ def write_training_set(directory: str, n_items: int, n_mels: int = 80, seed: int
 
 def log(*args):
     print(*args, flush=True)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -768,31 +771,45 @@ def phase_card_vs_cpu():
     inputs = dict(x=x, x_lengths=lens, ref=ref, ref_lengths=ref_len, sty=ref,
                   sty_lengths=ref_len, lf0=lf0, lf0_lengths=ref_len, latents_noise=noise)
 
-    def run(model, device):
+    def run(model, device, sampler):
         with torch.no_grad():
             return model.synthesize(
-                y_max_length=y_max, sampler=SamplerConfig(num_steps=2), temperature=1.5,
+                y_max_length=y_max, sampler=sampler, temperature=1.5,
                 **{k: v.to(device) for k, v in inputs.items()},
             )
 
-    want = run(cpu_model, "cpu")
+    def card_vs_cpu(label, sampler, n_launches):
+        want = run(cpu_model, "cpu", sampler)
+        flash_attention.launches = 0
+        got = run(gpu_model, "cuda", sampler)
+        torch.cuda.synchronize()
+        launches = flash_attention.launches
+        err = (got[1].cpu() - want[1]).abs().max().item()
+        log(f"card vs CPU (f32, depth-cut DeX, 820 tokens, {label}): mel max_abs_err {err:.3e}"
+            f" (bound {MEL_ATOL:.0e}), launches {launches}")
+        assert torch.equal(got[3].cpu(), want[3]), "y_lengths differ"
+        assert launches == n_launches, (label, launches)
+        assert math.isfinite(err) and err <= MEL_ATOL, (label, err)
+        return want
+
+    depth = cfg.dit.depth
+    euler = SamplerConfig(num_steps=2)
+    want = card_vs_cpu("euler, 2 steps", euler, depth * 2)
     # the bound must separate a broken kernel: the same run with the
     # attention output zeroed lands far outside it
     with mock.patch.object(dit, "flash_attention_qkv",
                            lambda qkv, scale: torch.zeros_like(qkv[:, :, 0])):
-        zeroed = run(cpu_model, "cpu")
-    flash_attention.launches = 0
-    got = run(gpu_model, "cuda")
-    torch.cuda.synchronize()
-    launches = flash_attention.launches
-    err = (got[1].cpu() - want[1]).abs().max().item()
+        zeroed = run(cpu_model, "cpu", euler)
     zeroed_err = (zeroed[1] - want[1]).abs().max().item()
-    log(f"card vs CPU (f32, depth-cut DeX, 820 tokens, 2 steps): mel max_abs_err {err:.3e}"
-        f" (bound {MEL_ATOL:.0e}; attention zeroed: {zeroed_err:.3e}), launches {launches}")
-    assert torch.equal(got[3].cpu(), want[3]), "y_lengths differ"
-    assert launches == cfg.dit.depth * 2, launches
-    assert math.isfinite(err) and err <= MEL_ATOL, err
+    log(f"card vs CPU, euler: attention zeroed on the CPU {zeroed_err:.3e} off")
     assert zeroed_err > 10 * MEL_ATOL, zeroed_err
+    card_vs_cpu("dpmpp2m, 4 steps", SamplerConfig(num_steps=4, solver="dpmpp2m"), depth * 4)
+    cached = card_vs_cpu("DiT cache k = 2, 4 steps",
+                         SamplerConfig(num_steps=4, dit_cache_interval=2), depth * 2)
+    exact = run(cpu_model, "cpu", SamplerConfig(num_steps=4))
+    cache_off = (cached[1] - exact[1]).abs().max().item()
+    log(f"card vs CPU, DiT cache: the cached mel is {cache_off:.3e} off the exact 4-step one")
+    assert not torch.equal(cached[1], exact[1]), "the DiT cache ran exact steps"
 
 
 def phase_bigvgan_card_vs_cpu():
@@ -846,18 +863,6 @@ def phase_bigvgan_card_vs_cpu():
 TRAIN_OUT_SIZE = 172  # esd: 2 s of mel (22050 Hz, hop 256) → 172 frames
 TRAIN_LOSS_RTOL = 1e-4  # card vs CPU train step, f32 with TF32 off
 TRAIN_GRAD_REL = 1e-3  # × (max|g| + 1e-3 × the model's largest gradient), per tensor
-
-
-def bench_train_batch(b=32, frames=256, n_feats=80, tx=96):
-    """bench_train.py's synthetic batch (bench_train.py:32-49): one seed,
-    every item full length; ref, sty and y share the mel."""
-    rng = np.random.default_rng(0)
-    lens = np.full((b,), frames, np.int32)
-    mel = rng.standard_normal((b, n_feats, frames)).astype(np.float32)
-    return {"x": rng.integers(1, 148, (b, tx)).astype(np.int32),
-            "x_lengths": np.full((b,), tx, np.int32), "y": mel, "y_lengths": lens,
-            "ref": mel, "ref_lengths": lens, "sty": mel, "sty_lengths": lens,
-            "lf0": rng.standard_normal((b, frames)).astype(np.float32), "lf0_lengths": lens}
 
 
 class _PlainAttentionBrokenDq(torch.autograd.Function):
@@ -1035,7 +1040,7 @@ def build_train_path(attention: str):
     state = create_train_state(build_model(cfg, device="cuda"), seed=100, lr=preset.train.lr,
                                max_grad=preset.train.max_grad)
     step = make_train_step(out_size=out_size, ema_decay=preset.train.ema_decay)
-    return cfg, mode, state, step, bench_train_batch()
+    return cfg, mode, state, step, synthetic_batch()
 
 
 def phase_train_main_path(card: str, attention: str, steps: int = 10) -> dict:
@@ -1153,14 +1158,19 @@ def random_ref_feats(n, seed=5, t_ref=256):
              rng.standard_normal(t_ref).astype(np.float32)) for _ in range(n)]
 
 
-def phase_main_path(card: str, preset_name: str, refs_1: dict, refs_2: dict) -> dict:
+def phase_main_path(card: str, preset_name: str, refs_1: dict, refs_2: dict,
+                    sampler_options: bool = False) -> dict:
     """One main path through Synthesizer.tts: request 1 (16 long
     sentences, warm-up then one timed call) and request 2 (3 short ones,
     warm-up then five timed calls). ``refs_*``: the style keyword of
-    `tts` (``ref_feats`` or ``ref_wavs``). Each kernel's count is set to
-    0 just before each call and read just after. → request 1's launches
-    per kernel, wall and RTF, and request 2's walls."""
+    `tts` (``ref_feats`` or ``ref_wavs``). With ``sampler_options``, one
+    call each of request 1 under dpmpp2m at 16 steps and under the DiT
+    cache at k = 5, and of request 2 with vocode=False. Each kernel's
+    count is set to 0 just before each call and read just after. →
+    request 1's launches per kernel, wall and RTF, request 2's walls, and
+    the option calls' launches, walls and RTFs."""
     from dex_tts_tpu_torch.models.dit import resolve_attention_mode, token_count
+    from dex_tts_tpu_torch.models.edm import SamplerConfig
     from dex_tts_tpu_torch.models.vocoder import BigVGANGenerator
     from dex_tts_tpu_torch.ops.attention import flash_attention
     from dex_tts_tpu_torch.ops.snake import snake_antialias
@@ -1170,7 +1180,7 @@ def phase_main_path(card: str, preset_name: str, refs_1: dict, refs_2: dict) -> 
     dit_cfg = preset.model.dit_config()
     n_snakes = SNAKE_LAUNCHES if isinstance(synth.vocoder, BigVGANGenerator) else 0
 
-    def request(texts, refs, label):
+    def request(texts, refs, label, n_steps=preset.n_timesteps, **options):
         feats = refs.get("ref_feats") or [synth.prepare_reference(p) for p in refs["ref_wavs"]]
         inputs, b = synth.prepare_batch(texts, ref_feats=feats)
         y_len = synth.frame_bucket(inputs, max_frames=768)
@@ -1180,7 +1190,7 @@ def phase_main_path(card: str, preset_name: str, refs_1: dict, refs_2: dict) -> 
         flash_attention.launches = snake_antialias.launches = 0
         t0 = time.perf_counter()
         out = synth.tts(texts, temperature=preset.temperature, max_frames=768,
-                        generator=torch.Generator("cuda").manual_seed(6), **refs)
+                        generator=torch.Generator("cuda").manual_seed(6), **refs, **options)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"flash_attention": flash_attention.launches,
@@ -1192,12 +1202,18 @@ def phase_main_path(card: str, preset_name: str, refs_1: dict, refs_2: dict) -> 
             f" {wall / audio_s:.6f} over {audio_s:.2f} s audio ({wall / bucket_s:.6f} over"
             f" the padded bucket), launches {launches} [{card}]")
         assert len(out) == len(texts)
+        vocoded = options.get("vocode", True)
         for r in out:
-            assert r["wav"].shape == (r["n_frames"] * synth.hop,)
-            assert np.isfinite(r["wav"]).all() and np.isfinite(r["mel"]).all()
+            assert ("wav" in r) == vocoded, sorted(r)
+            assert np.isfinite(r["mel"]).all()
+            if vocoded:
+                assert r["wav"].shape == (r["n_frames"] * synth.hop,)
+                assert np.isfinite(r["wav"]).all()
         if resolve_attention_mode(dit_cfg, tokens) == "flash_bf16":
-            assert launches["flash_attention"] == dit_cfg.depth * preset.n_timesteps, launches
-        assert launches["snake"] == n_snakes, launches
+            # a DiT-cache chunk of k steps runs the DiT once
+            dit_steps = n_steps // options.get("dit_cache_interval", 1)
+            assert launches["flash_attention"] == dit_cfg.depth * dit_steps, launches
+        assert launches["snake"] == (n_snakes if vocoded else 0), launches
         return dict(frames=y_len, launches=launches, wall_s=wall, rtf=wall / audio_s,
                     audio_s=audio_s)
 
@@ -1210,7 +1226,57 @@ def phase_main_path(card: str, preset_name: str, refs_1: dict, refs_2: dict) -> 
                    for i in range(5))
     log(f"[{preset_name}] request 2 latency over 5 warm calls: min {walls[0]:.4f} s,"
         f" median {walls[2]:.4f} s, max {walls[-1]:.4f} s [{card}]")
-    return dict(request_1=first, request_2_walls_s=walls)
+    if not sampler_options:
+        return dict(request_1=first, request_2_walls_s=walls)
+    options = {
+        "dpmpp2m_16": request(SENTENCES, refs_1, "request 1, dpmpp2m 16 steps", n_steps=16,
+                              solver="dpmpp2m", n_timesteps=16),
+        "dit_cache_5": request(SENTENCES, refs_1, "request 1, DiT cache k = 5",
+                               dit_cache_interval=5),
+        "no_vocode": request(REQUEST_2, refs_2, "request 2, vocode=False", vocode=False),
+    }
+    # the options were per call: the synthesizer's own sampler is unchanged
+    assert synth.sampler == SamplerConfig(num_steps=preset.n_timesteps), synth.sampler
+    return dict(request_1=first, request_2_walls_s=walls, options=options)
+
+
+# the port bench's runs: (label, argv, K1 launches, K2 launches) per
+# text→WAV call: K1 4 per DiT evaluation (depth 4), K2 109 per BigVGAN call
+BENCH_RUNS = [
+    ("default", [], 200, 0),
+    ("dpmpp2m_16", ["--solver", "dpmpp2m", "--steps", "16"], 64, 0),
+    ("dit_cache_5", ["--dit_cache", "5"], 40, 0),
+    ("gedex_bigvgan", ["--family", "gedex", "--vocoder", "bigvgan"], 200, SNAKE_LAUNCHES),
+]
+
+
+def phase_bench(card: str) -> dict:
+    """The port's benches in this process, as `python -m
+    dex_tts_tpu_torch.bench ...` and `python -m dex_tts_tpu_torch.bench_train`
+    run them: each JSON line logged behind its label (so that the kernels
+    and device lines stay the only bare JSON lines), the launches of one
+    timed call (of the timed train steps) asserted. → {label: JSON line}."""
+    from dex_tts_tpu_torch import bench, bench_train
+
+    lines = {}
+    for label, argv, k1, k2 in BENCH_RUNS:
+        with contextlib.redirect_stdout(io.StringIO()):
+            line = bench.main(argv)
+        log(f"[bench {label}] {json.dumps(line)}")
+        assert line["launches"] == {"flash_attention": k1, "snake": k2}, (label, line["launches"])
+        assert math.isfinite(line["value"]) and line["card"] == card, line
+        lines[label] = line
+        torch.cuda.empty_cache()
+    with contextlib.redirect_stdout(io.StringIO()):
+        line = bench_train.main([])
+    log(f"[bench_train default] {json.dumps(line)}")
+    steps = bench_train.parse_args([]).steps
+    assert line["launches"] == dict(flash_attention=0, flash_attention_bwd=0,
+                                    maximum_path=steps), line["launches"]
+    assert math.isfinite(line["final_loss"]) and line["card"] == card, line
+    lines["train_default"] = line
+    torch.cuda.empty_cache()
+    return lines
 
 
 def main():
@@ -1261,13 +1327,18 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             fit = phase_trainer_fit(card, tmp)
     hifigan = phase_main_path(card, "vctk_bench", {"ref_feats": random_ref_feats(16)},
-                              {"ref_feats": random_ref_feats(3, seed=6)})
+                              {"ref_feats": random_ref_feats(3, seed=6)}, sampler_options=True)
     with tempfile.TemporaryDirectory() as tmp:
         wavs = write_reference_wavs(tmp, 16)
         bigvgan = phase_main_path(card, "vctk_bench_bigvgan", {"ref_wavs": wavs},
                                   {"ref_wavs": wavs[:3]})
-    paths = {"hifigan": hifigan["request_1"]["launches"], "bigvgan": bigvgan["request_1"]["launches"]}
-    train_launches = {f"train_{k}": v["launches"] for k, v in train.items()}
+    with torch_tf32_defaults():
+        benches = phase_bench(card)
+    paths = {"hifigan": hifigan["request_1"]["launches"], "bigvgan": bigvgan["request_1"]["launches"],
+             **{f"hifigan_{k}": v["launches"] for k, v in hifigan["options"].items()},
+             **{f"bench_{run[0]}": benches[run[0]]["launches"] for run in BENCH_RUNS}}
+    train_launches = {**{f"train_{k}": v["launches"] for k, v in train.items()},
+                      "bench_train": benches["train_default"]["launches"]}
 
     bf16, f32 = report[torch.bfloat16], report[torch.float32]
     sb, sf = snake[torch.bfloat16], snake[torch.float32]
@@ -1340,7 +1411,7 @@ def main():
         "max_abs_err": mas_err,
         "ms": mas[MAS_SHAPES[0]]["ms"],  # the wrapper's wall time per call
         "device_ms": mas[MAS_SHAPES[0]]["device_ms"],  # the kernel's, torch.profiler
-        "route": mas[MAS_SHAPES[0]]["route"],
+        "mas_route": mas[MAS_SHAPES[0]]["route"],  # K4's own route (warp or wide)
         "plain_ms": mas[MAS_SHAPES[0]]["plain_ms"],
         "bound_ms": mas[MAS_SHAPES[0]]["bound_ms"],
         "bound_by": mas[MAS_SHAPES[0]]["bound_by"],
@@ -1378,6 +1449,10 @@ def main():
         + ", ".join(f"{k} {v['steps_per_s']:.4f}" for k, v in train.items())
         + f"; train card vs CPU worst error/bound {train_parity['worst_ratio']:.3e};"
         f" Trainer.fit {fit['wall_s']:.1f} s")
+    log("port bench: e2e RTF " + ", ".join(f"{k} {v['value']}" for k, v in benches.items()
+                                          if k != "train_default")
+        + f"; train {benches['train_default']['value']} steps/s, peak"
+        f" {benches['train_default']['peak_mem_gib']:.3f} GiB [{card}]")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ base.yaml; f32 compute); ``esd`` from dex_tts_tpu/config/presets/esd.yaml
 bench_train.py trains); ``vctk_bench`` is the benchmark's full-size DeX
 (bf16 compute, attention "auto") with HiFi-GAN; ``vctk_bench_bigvgan`` is
 the same DeX with the bf16 BigVGAN at the released 22 kHz 80-band widths,
-the JAX bench's ``--vocoder bigvgan`` (bench.py:108-119).
+the JAX bench's ``--vocoder bigvgan`` (bench.py:108-119); ``gedex_bench``
+is the benchmark's GeDEX (`__graft_entry__._full_size_gedex`: patch 7,
+stride 4, one speaker, no style) with HiFi-GAN.
 """
 
 from __future__ import annotations
@@ -194,8 +196,40 @@ def vctk_bench_bigvgan() -> Preset:
     )
 
 
+def gedex_bench() -> Preset:
+    """The benchmark's GeDEX at the reference's LJSpeech scale
+    (`__graft_entry__._full_size_gedex`; GeDEX-TTS/config/LJSpeech/
+    base.yaml:29-62): bf16 compute, DiT patch 7 / stride 4, attention
+    "auto", no style, one speaker."""
+    return Preset(
+        model=TTSConfig(
+            n_vocab=149,
+            n_feats=80,
+            compute_dtype="bfloat16",
+            enc_channels=192,
+            enc_filter_channels=1024,
+            enc_filter_channels_dp=256,
+            enc_heads=2,
+            enc_layers=8,
+            dec_dim=64,
+            dec_dim_mults=(1, 2),
+            dit=DiTConfig(
+                patch_size=7,
+                stride_size=4,
+                hidden_size=256,
+                depth=4,
+                num_heads=2,
+                mlp_ratio=2.0,
+                conv_pos=16,
+                conv_pos_groups=8,
+                attention="auto",
+            ),
+        )
+    )
+
+
 PRESETS = {"vctk": vctk, "esd": esd, "vctk_bench": vctk_bench,
-           "vctk_bench_bigvgan": vctk_bench_bigvgan}
+           "vctk_bench_bigvgan": vctk_bench_bigvgan, "gedex_bench": gedex_bench}
 
 
 def load_preset(name: str) -> Preset:

@@ -1,11 +1,12 @@
-"""EDM preconditioning, the training loss and the euler/heun ODE sampler
-(port of dex_tts_tpu/models/edm.py).
+"""EDM preconditioning, the training loss and the ODE samplers: euler,
+heun, DPM-Solver++(2M) and the DiT-cache ("turbo") euler sampler (port of
+dex_tts_tpu/models/edm.py).
 
 reference: DEX-TTS/model/edm.py:22-211. Training noise is mu-shifted,
 n = (randn + mu)·σ (reference: model/edm.py:64). Every schedule quantity
-is a host-side numpy array precomputed by `build_schedule` (a copy of the
-JAX package's); the sampling loop is a Python loop of denoiser
-evaluations. dpmpp2m and the DiT-cache sampler are not ported yet.
+is a host-side numpy array precomputed by `build_schedule` /
+`build_dpmpp2m_schedule` (copies of the JAX package's); each sampling loop
+is a Python loop of denoiser evaluations.
 """
 
 from __future__ import annotations
@@ -26,10 +27,16 @@ def edm_precond_scalings(sigma, sigma_data: float = 0.5):
     return c_skip, c_out, c_in, c_noise
 
 
-def apply_precond(denoise_fn, x, sigma, sigma_data: float = 0.5, **kwargs):
-    """D(x; σ) = c_skip·x + c_out·F(c_in·x; c_noise); x (B, F, W), sigma (B,)."""
+def apply_precond(denoise_fn, x, sigma, sigma_data: float = 0.5, has_aux: bool = False,
+                  **kwargs):
+    """D(x; σ) = c_skip·x + c_out·F(c_in·x; c_noise); x (B, F, W), sigma (B,).
+    has_aux: denoise_fn returns (F_x, aux) and the aux rides along
+    (DiT-cache sampling)."""
     c_skip, c_out, c_in, _ = edm_precond_scalings(sigma.reshape(-1, 1, 1), sigma_data)
     c_noise = torch.log(sigma) / 4.0
+    if has_aux:
+        f_x, aux = denoise_fn(c_in * x, c_noise, **kwargs)
+        return c_skip * x + c_out * f_x, aux
     return c_skip * x + c_out * denoise_fn(c_in * x, c_noise, **kwargs)
 
 
@@ -237,27 +244,77 @@ def build_schedule(cfg: SamplerConfig) -> dict[str, np.ndarray]:
     }
 
 
-def ablation_sampler(denoise_fn, latents, cfg: SamplerConfig,
-                     sigma_data: float = 0.5, generator=None, **cond):
-    """Euler / heun ODE sampler. reference: DEX-TTS/model/edm.py:104-211.
+def build_dpmpp2m_schedule(cfg: SamplerConfig) -> dict[str, np.ndarray]:
+    """Per-step coefficients of DPM-Solver++(2M) (Lu et al. 2022, arXiv
+    2211.01095), data-prediction multistep form for x = x₀ + σ·ε (scaling
+    "none"); a copy of the JAX package's. With λ = −ln σ:
+
+        x_{i+1} = (σ_{i+1}/σ_i)·x_i + (1 − σ_{i+1}/σ_i)·D̃_i
+        D̃_i = c1_i·D_i + c2_i·D_{i−1},  c1 = 1 + 1/(2r), c2 = −1/(2r),
+        r_i = h_{i−1}/h_i,  h_i = λ_{i+1} − λ_i
+
+    The first and last steps are first order (c1 = 1, c2 = 0). It shares
+    the σ ladder with the euler/heun sampler."""
+    n = cfg.num_steps
+    sigma_min, sigma_max = _resolve_sigma_range(cfg)
+    vp_beta_d, vp_beta_min = _vp_betas(cfg, sigma_min, sigma_max)
+    sig = _discretize_sigmas(cfg, sigma_min, sigma_max, vp_beta_d, vp_beta_min)
+
+    ratio = np.concatenate([sig[1:], [0.0]]) / sig  # σ_{i+1}/σ_i; last → 0
+    c1 = np.ones(n)
+    c2 = np.zeros(n)
+    if n > 2:
+        lam = -np.log(sig)
+        h = lam[1:] - lam[:-1]
+        r = h[:-1] / h[1:]  # r_i for i = 1..n-2
+        c1[1: n - 1] = 1.0 + 1.0 / (2.0 * r)
+        c2[1: n - 1] = -1.0 / (2.0 * r)
+
+    f32 = lambda x: np.asarray(x, np.float32)
+    return {
+        "x_init_scale": f32(sig[0]),
+        "sigma": f32(sig),
+        "ratio": f32(ratio),
+        "cd": f32(1.0 - ratio),
+        "c1": f32(c1),
+        "c2": f32(c2),
+    }
+
+
+def _per_step(sched: dict, i: int) -> dict[str, float]:
+    return {k: float(v[i]) for k, v in sched.items() if k != "x_init_scale"}
+
+
+def ablation_sampler(denoise_fn, latents, cfg: SamplerConfig, sigma_data: float = 0.5,
+                     generator=None, denoise_fn_mid=None, denoise_fn_cached=None, **cond):
+    """Euler / heun / dpmpp2m ODE sampler, and the DiT-cache euler sampler
+    when ``cfg.dit_cache_interval`` > 1. reference: DEX-TTS/model/edm.py:104-211.
 
     denoise_fn(x, t, **cond) is the raw network (preconditioning applied
     here); latents: (B, n_feats, W). ``generator`` feeds the churn noise
-    (only used with s_churn > 0)."""
-    if cfg.solver not in ("euler", "heun"):
-        raise NotImplementedError(f"solver {cfg.solver!r} is not ported")
-    if cfg.dit_cache_interval > 1:
-        raise NotImplementedError("the DiT-cache sampler is not ported")
-    sched = build_schedule(cfg)
+    (only used with s_churn > 0). The DiT cache also needs
+    denoise_fn_mid(x, t, **cond) → (out, mid) (a full evaluation that
+    keeps the DiT's output) and denoise_fn_cached(x, t, mid=mid, **cond)
+    (the conv path only, reusing it). Invalid combinations raise
+    ValueError, checked in the JAX package's order."""
+    if cfg.solver not in ("euler", "heun", "dpmpp2m"):
+        raise ValueError(f"unknown solver {cfg.solver!r}")
     b = latents.shape[0]
 
     def denoised_at(x, sigma):
         sigma_b = torch.full((b,), sigma, dtype=latents.dtype, device=latents.device)
         return apply_precond(denoise_fn, x, sigma_b, sigma_data, **cond)
 
+    if cfg.solver == "dpmpp2m":
+        return _dpmpp2m_sampler(denoised_at, latents, cfg)
+    sched = build_schedule(cfg)
+    if cfg.dit_cache_interval > 1:
+        return _dit_cache_sampler(denoise_fn_mid, denoise_fn_cached, latents, cfg, sched,
+                                  sigma_data, **cond)
+
     x = latents * float(sched["x_init_scale"])
     for i in range(cfg.num_steps):
-        ps = {k: float(v[i]) for k, v in sched.items() if k != "x_init_scale"}
+        ps = _per_step(sched, i)
         x_hat = ps["ratio_s"] * x
         if cfg.s_churn > 0:
             noise = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
@@ -274,4 +331,63 @@ def ablation_sampler(denoise_fn, latents, cfg: SamplerConfig,
             )
         else:
             x = x_hat + ps["h"] * d_cur
+    return x
+
+
+def _dpmpp2m_sampler(denoised_at, latents, cfg: SamplerConfig):
+    """DPM-Solver++(2M) (see `build_dpmpp2m_schedule`): deterministic, one
+    denoiser evaluation per step on the unscaled x; the first-order first
+    and last steps come from the (c1, c2) arrays, not from branches."""
+    if cfg.scaling != "none":
+        raise ValueError("solver='dpmpp2m' requires scaling='none'")
+    if cfg.s_churn > 0:
+        raise ValueError("solver='dpmpp2m' is deterministic (no churn)")
+    if cfg.dit_cache_interval > 1:
+        raise ValueError("solver='dpmpp2m' is incompatible with dit_cache_interval>1")
+    sched = build_dpmpp2m_schedule(cfg)
+    x = latents * float(sched["x_init_scale"])
+    old_den = torch.zeros_like(x)
+    for i in range(cfg.num_steps):
+        ps = _per_step(sched, i)
+        den = denoised_at(x, ps["sigma"])
+        x = ps["ratio"] * x + ps["cd"] * (ps["c1"] * den + ps["c2"] * old_den)
+        old_den = den
+    return x
+
+
+def _dit_cache_sampler(denoise_fn_mid, denoise_fn_cached, latents, cfg: SamplerConfig,
+                       sched: dict, sigma_data: float, **cond):
+    """Euler sampling in chunks of k = cfg.dit_cache_interval steps: the
+    chunk's first step runs the full denoiser and keeps the DiT's output
+    ``mid``; the k−1 steps after it reuse it (fresh conv path, fresh x and
+    σ), each an euler step with its own coefficients. Approximate: the
+    exact path is dit_cache_interval=1."""
+    k = cfg.dit_cache_interval
+    if cfg.solver != "euler":
+        raise ValueError("dit_cache_interval>1 requires the euler solver")
+    if cfg.s_churn > 0:
+        raise ValueError("dit_cache_interval>1 is incompatible with churn")
+    if cfg.num_steps % k:
+        raise ValueError(
+            f"num_steps {cfg.num_steps} must be a multiple of dit_cache_interval {k}"
+        )
+    if denoise_fn_mid is None or denoise_fn_cached is None:
+        raise ValueError("dit_cache_interval>1 needs denoise_fn_mid and denoise_fn_cached")
+    b = latents.shape[0]
+
+    def sigma_b(ps):
+        return torch.full((b,), ps["sigma_hat"], dtype=latents.dtype, device=latents.device)
+
+    x = latents * float(sched["x_init_scale"])
+    mid = None
+    for i in range(cfg.num_steps):
+        ps = _per_step(sched, i)
+        x_hat = ps["ratio_s"] * x
+        if i % k == 0:
+            den, mid = apply_precond(denoise_fn_mid, x_hat * ps["inv_s_hat"], sigma_b(ps),
+                                     sigma_data, has_aux=True, **cond)
+        else:
+            den = apply_precond(denoise_fn_cached, x_hat * ps["inv_s_hat"], sigma_b(ps),
+                                sigma_data, mid=mid, **cond)
+        x = x_hat + ps["h"] * (ps["a_hat"] * x_hat - ps["b_hat"] * den)
     return x

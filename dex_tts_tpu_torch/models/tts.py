@@ -196,12 +196,22 @@ class GeDEXTTS(nn.Module):
         def denoise_fn(z, t):
             return denoiser(z, mask3, mu_y, t, **denoise_kwargs)
 
+        # DiT-cache ("turbo") sampling hooks, used only when
+        # sampler.dit_cache_interval > 1 (models/edm._dit_cache_sampler)
+        def denoise_fn_mid(z, t):
+            return denoiser(z, mask3, mu_y, t, return_mid=True, **denoise_kwargs)
+
+        def denoise_fn_cached(z, t, mid=None):
+            return denoiser(z, mask3, mu_y, t, mid_override=mid, **denoise_kwargs)
+
         if latents_noise is None:
             latents_noise = torch.randn(
                 mu_y.shape, generator=generator, dtype=mu_y.dtype, device=mu_y.device
             )
         latents = latents_noise.to(mu_y.dtype) / temperature + mu_y
-        dec_out = ablation_sampler(denoise_fn, latents, sampler, generator=generator)
+        dec_out = ablation_sampler(denoise_fn, latents, sampler, generator=generator,
+                                   denoise_fn_mid=denoise_fn_mid,
+                                   denoise_fn_cached=denoise_fn_cached)
         return mu_y * mask3, dec_out * mask3, attn, y_lengths
 
     def compute_loss(self, x, x_lengths, y, y_lengths, out_size: int | None = None,

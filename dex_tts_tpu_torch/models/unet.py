@@ -202,12 +202,19 @@ class DiffusionDenoiser(nn.Module):
         self.final_conv = nn.Conv2d(dim, 1, 1)
 
     def forward(self, x, mask, mu, t, ref=None, sty=None, sty_lengths=None, spk=None,
-                train: bool = False, mask_ratio: float = 0.0):
+                train: bool = False, mask_ratio: float = 0.0, return_mid: bool = False,
+                mid_override=None):
         """x, mu: (B, n_feats, W); mask: (B, 1, W); t: (B,) noise labels;
         ref (DEX): (means, stds) each (B, L, C_mid); sty (DEX): (B, Ts,
         C_mid); spk (GeDEX): (B, spk_emb_dim). ``train`` and ``mask_ratio``
         reach the DiT (attention-mode threshold, token masking). Returns
-        (B, n_feats, W) f32."""
+        (B, n_feats, W) f32.
+
+        DiT-cache sampling hooks (`edm._dit_cache_sampler`): return_mid
+        also returns ``mid``, the output of the adaptors and the DiT in the
+        compute dtype, (B, C_mid, H_mid, W_mid); mid_override replaces it,
+        skipping the adaptors, their time MLPs and the DiT, so only the
+        conv U-Net path runs."""
         dt = self.compute_dtype
         channels = [mu, x]
         if not self.use_style and self.n_spks > 1:
@@ -232,13 +239,17 @@ class DiffusionDenoiser(nn.Module):
         masks = masks[:-1]
         mask_mid = masks[-1]
 
-        if self.use_style:
-            t_adap = self.mlp_adap(t_init)
-            t_sty = self.mlp_adap_sty(t_init)
-            sty_mask = sequence_mask(sty_lengths, sty.shape[1]).float()
-            h = self.tv_adaptor(h, mask_mid, sty, sty_mask, t_sty[:, None, :])
-            h = self.tiv_adaptor(h, ref, t_adap[:, None, :])
-        h = self.vit(h, mask_mid, t, train=train, mask_ratio=mask_ratio).to(dt)
+        if mid_override is not None:
+            h = mid_override.to(dt)
+        else:
+            if self.use_style:
+                t_adap = self.mlp_adap(t_init)
+                t_sty = self.mlp_adap_sty(t_init)
+                sty_mask = sequence_mask(sty_lengths, sty.shape[1]).float()
+                h = self.tv_adaptor(h, mask_mid, sty, sty_mask, t_sty[:, None, :])
+                h = self.tiv_adaptor(h, ref, t_adap[:, None, :])
+            h = self.vit(h, mask_mid, t, train=train, mask_ratio=mask_ratio).to(dt)
+        mid = h
 
         for (res1, res2, attn, up), m in zip(self.ups, reversed(masks[1:])):
             h = torch.cat([h, hiddens.pop()], dim=1)
@@ -248,5 +259,5 @@ class DiffusionDenoiser(nn.Module):
             h = up(h * m, dt)
 
         h = self.final_block(h, mask4, dt)
-        out = run_in(self.final_conv, h * mask4, dt)
-        return (out * mask4).float()[:, 0]
+        out = (run_in(self.final_conv, h * mask4, dt) * mask4).float()[:, 0]
+        return (out, mid) if return_mid else out

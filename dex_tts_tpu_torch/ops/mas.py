@@ -200,11 +200,31 @@ def kernel_plan(t_x: int, t_y: int) -> tuple[str, int, int, int]:
     return {0: "warp", 1: "wide"}.get(out[0], "none"), out[1], out[2], out[3]
 
 
+def launch_plan(b: int, t_x: int, t_y: int) -> tuple[str, int, int, int]:
+    """`plan` for a launch at (B, Tx, Ty), checked before any launch: a
+    ValueError for an empty batch, and for a shape that neither route's
+    shared memory fits (the launcher would refuse it)."""
+    shape = f"(B, Tx, Ty) = ({b}, {t_x}, {t_y})"
+    if b == 0:
+        raise ValueError(f"maximum_path: the batch is empty, {shape}")
+    if t_x <= 0 or t_y <= 0:
+        raise ValueError(f"maximum_path: Tx and Ty must be positive, {shape}")
+    route = plan(t_x, t_y)
+    if route[0] == "none":
+        raise ValueError(
+            f"maximum_path: no K4 route for {shape}: the wide route's"
+            f" {12 * t_x + 4 * _round4(t_y) + 68} bytes of shared memory exceed the"
+            f" {SMEM_BUDGET}-byte limit, as does the warp route's (Tx <= {MAX_WARP_TX})"
+        )
+    return route
+
+
 def _launch(value, mask):
     """One K4 launch: f32 contiguous (B, Tx, Ty) value and mask → the f32
     path, written in full (the wide route keeps its bits in the path's
     buffer until it writes the path; the warp route in shared memory)."""
     b, t_x, t_y = value.shape
+    route = launch_plan(b, t_x, t_y)[0]
     value = value.float().contiguous()
     mask = mask.float().contiguous()
     path = torch.empty((b, t_x, t_y), dtype=torch.float32, device=value.device)
@@ -216,7 +236,7 @@ def _launch(value, mask):
     if err:
         raise RuntimeError(f"maximum_path launch failed: CUDA error {err}")
     maximum_path.launches += 1
-    maximum_path.launches_by_route[plan(t_x, t_y)[0]] += 1
+    maximum_path.launches_by_route[route] += 1
     return path
 
 

@@ -2,10 +2,12 @@
 speaker id) → waveform (port of dex_tts_tpu/pipeline.py, `tts` path).
 
   1. the duration pre-pass (`predict_frames`) predicts the frame count,
-  2. the host rounds it up to a frame bucket (×64, U-Net compatible) and
-     the text to a ×32 bucket, and pads the batch to a power of two,
-  3. one synthesis at the bucketed shape runs the 50-step sampler and the
-     vocoder.
+  2. the host rounds it up to a frame bucket (×``y_quantum``, U-Net
+     compatible) and the text to a ×``x_quantum`` bucket, and pads the
+     batch to a power of two (``pad_batches``),
+  3. one synthesis at the bucketed shape runs the sampler (50 euler steps
+     unless the call asks for other steps, solver or DiT cache) and the
+     vocoder (unless ``vocode=False``).
 
 The buckets and batch padding are those of the JAX package, so both pick
 the same shapes for the same inputs. Style comes in as reference wav files
@@ -16,6 +18,7 @@ are not ported yet.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
@@ -32,10 +35,6 @@ from dex_tts_tpu_torch.utils import intersperse, resolve_device
 
 HOP_LENGTH = 256
 SAMPLE_RATE = 22050
-# text and frame bucket quanta of every shipped preset (vctk.yaml
-# train.x_quantum / y_quantum); every preset also intersperses blanks
-X_QUANTUM = 32
-Y_QUANTUM = 64
 
 
 def _bucket(n: int, quantum: int, minimum: int = 0) -> int:
@@ -50,23 +49,36 @@ class Synthesizer:
         cmu_path: str | None = None,
         sampler: SamplerConfig | None = None,
         device=None,
+        add_blank: bool = True,
+        x_quantum: int = 32,
+        y_quantum: int = 64,
+        pad_batches: bool = True,
     ):
         """model: a DeXTTS / GeDEXTTS with its weights; vocoder: a
         HiFiGANGenerator, a BigVGANGenerator or None. Both are moved to
         ``device`` (CUDA by default; raises if CUDA is missing and "cpu" was
-        not asked for)."""
+        not asked for). add_blank intersperses the blank token; x_quantum
+        and y_quantum are the text and frame bucket quanta; pad_batches
+        pads every batch to a power of two (repeating the last row; the
+        extra results are dropped), as the JAX package does."""
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.vocoder = None if vocoder is None else vocoder.to(self.device).eval()
         self.cmudict = CMUDict(cmu_path) if cmu_path else None
+        self.add_blank = add_blank
         self.sampler = sampler or SamplerConfig(num_steps=50)
+        self.x_quantum = x_quantum
+        self.y_quantum = y_quantum
+        self.pad_batches = pad_batches
         self.mel_extractor = MelSpectrogram()
         self.hop = HOP_LENGTH
         if vocoder is not None:
             self.hop = int(np.prod(vocoder.cfg.upsample_rates))
 
     def prepare_text(self, text: str) -> np.ndarray:
-        seq = intersperse(text_to_sequence(text, dictionary=self.cmudict), BLANK_ID)
+        seq = text_to_sequence(text, dictionary=self.cmudict)
+        if self.add_blank:
+            seq = intersperse(seq, BLANK_ID)
         return np.asarray(seq, np.int32)
 
     def prepare_reference(self, wav_path: str):
@@ -89,7 +101,7 @@ class Synthesizer:
         padded → (inputs dict of device tensors, true batch size)."""
         seqs = [self.prepare_text(t) for t in texts]
         b = len(seqs)
-        x_max = _bucket(max(len(s) for s in seqs), X_QUANTUM)
+        x_max = _bucket(max(len(s) for s in seqs), self.x_quantum)
         x = np.zeros((b, x_max), np.int64)
         x_lengths = np.zeros((b,), np.int64)
         for i, s in enumerate(seqs):
@@ -105,7 +117,7 @@ class Synthesizer:
                 (m[:, : min(m.shape[1], len(l))], l[: min(m.shape[1], len(l))])
                 for m, l in ref_feats
             ]
-            t_max = _bucket(max(m.shape[1] for m, _ in pairs), Y_QUANTUM, 4)
+            t_max = _bucket(max(m.shape[1] for m, _ in pairs), self.y_quantum, 4)
             ref = np.zeros((b, pairs[0][0].shape[0], t_max), np.float32)
             lf0 = np.zeros((b, t_max), np.float32)
             lens = np.zeros((b,), np.int64)
@@ -115,7 +127,7 @@ class Synthesizer:
                 lens[i] = m.shape[1]
             inputs.update(ref=ref, ref_lengths=lens, sty=ref, sty_lengths=lens,
                           lf0=lf0, lf0_lengths=lens)
-        b_pad = 1 << (b - 1).bit_length()  # next power of two
+        b_pad = 1 << (b - 1).bit_length() if self.pad_batches else b
         if b_pad != b:
             # repeat the last row: padding stays a valid input; the extra
             # rows are dropped from the results
@@ -138,25 +150,41 @@ class Synthesizer:
     def frame_bucket(self, inputs: dict, length_scale=1.0, max_frames: int = 2048) -> int:
         """The static frame count synthesis runs at for this batch."""
         n_frames = self.predict_frames(inputs, length_scale)
-        return fix_len_compatibility(min(_bucket(n_frames, Y_QUANTUM, 8), max_frames))
+        return fix_len_compatibility(min(_bucket(n_frames, self.y_quantum, 8), max_frames))
 
     @torch.no_grad()
     def tts(
         self,
         texts: Sequence[str],
         generator: torch.Generator | None = None,
+        n_timesteps: int | None = None,
+        dit_cache_interval: int | None = None,
+        solver: str | None = None,
         temperature: float = 1.5,
         length_scale: float = 1.0,
         spk_ids: Sequence[int] | None = None,
         ref_wavs: Sequence[str] | None = None,
         ref_feats: Sequence[tuple] | None = None,
+        vocode: bool = True,
         max_frames: int = 2048,
     ) -> list[dict]:
         """Synthesize a batch of sentences → [{mel, wav, n_frames}] (no
-        "wav" without a vocoder). Style comes from ``ref_wavs`` (one wav
-        path per sentence) or else ``ref_feats``. Noise comes from
-        ``generator`` (a generator on the synthesizer's device; a fresh one
-        seeded with 0 when None)."""
+        "wav" without a vocoder or with ``vocode=False``). Style comes from
+        ``ref_wavs`` (one wav path per sentence) or else ``ref_feats``.
+        Noise comes from ``generator`` (a generator on the synthesizer's
+        device; a fresh one seeded with 0 when None). ``n_timesteps``,
+        ``solver`` (e.g. "dpmpp2m") and ``dit_cache_interval`` override
+        the synthesizer's sampler for this call only."""
+        overrides = {}
+        if n_timesteps is not None and n_timesteps != self.sampler.num_steps:
+            overrides["num_steps"] = n_timesteps
+        if dit_cache_interval is not None and dit_cache_interval != self.sampler.dit_cache_interval:
+            overrides["dit_cache_interval"] = dit_cache_interval
+        if solver is not None and solver != self.sampler.solver:
+            overrides["solver"] = solver
+        # a per-call local, never written to self: concurrent calls on one
+        # Synthesizer each keep their own sampler
+        sampler = dataclasses.replace(self.sampler, **overrides) if overrides else self.sampler
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
         if ref_wavs is not None:
@@ -166,11 +194,11 @@ class Synthesizer:
         y_len = self.frame_bucket(inputs, length_scale, max_frames)
         cond = {k: v for k, v in inputs.items() if k not in ("x", "x_lengths")}
         _, mel, _, y_lengths = self.model.synthesize(
-            inputs["x"], inputs["x_lengths"], y_max_length=y_len, sampler=self.sampler,
+            inputs["x"], inputs["x_lengths"], y_max_length=y_len, sampler=sampler,
             temperature=temperature, length_scale=length_scale,
             generator=generator, **cond,
         )
-        with_voc = self.vocoder is not None
+        with_voc = vocode and self.vocoder is not None
         wavs = self.vocoder(mel).cpu().numpy() if with_voc else None
         mels = mel.cpu().numpy()
         lens = y_lengths.cpu().numpy()

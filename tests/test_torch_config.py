@@ -2,6 +2,7 @@
 field, and the full-width parameter layout carries over strictly."""
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -10,7 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from __graft_entry__ import _full_size_dex  # noqa: E402
+from __graft_entry__ import _full_size_dex, _full_size_gedex  # noqa: E402
 from dex_tts_tpu.config import build_model as jax_build_model  # noqa: E402
 from dex_tts_tpu.config import load_preset as jax_load_preset  # noqa: E402
 from dex_tts_tpu.export import bigvgan_flax_to_torch as jax_bigvgan_export  # noqa: E402
@@ -24,11 +25,14 @@ from dex_tts_tpu_torch.convert import (  # noqa: E402
     load_numpy_state,
 )
 from dex_tts_tpu_torch.models.tts import TTSConfig  # noqa: E402
-from dex_tts_tpu_torch.pipeline import X_QUANTUM, Y_QUANTUM  # noqa: E402
+from dex_tts_tpu_torch.pipeline import Synthesizer  # noqa: E402
 
 
 def assert_same_fields(port_cfg: TTSConfig, jax_model):
     for f in dataclasses.fields(TTSConfig):
+        if not hasattr(jax_model, f.name):  # DeX's style fields, on a GeDEX
+            assert not port_cfg.use_style and getattr(port_cfg, f.name) == f.default, f.name
+            continue
         want = getattr(jax_model, f.name)
         got = getattr(port_cfg, f.name)
         if f.name == "dit":
@@ -40,7 +44,7 @@ def assert_same_fields(port_cfg: TTSConfig, jax_model):
 @pytest.mark.parametrize(
     "name,jax_factory",
     [("vctk", lambda: jax_build_model(jax_load_preset("vctk"))), ("vctk_bench", _full_size_dex),
-     ("vctk_bench_bigvgan", _full_size_dex)],
+     ("vctk_bench_bigvgan", _full_size_dex), ("gedex_bench", _full_size_gedex)],
 )
 def test_preset_equals_jax(name, jax_factory):
     assert_same_fields(load_preset(name).model, jax_factory())
@@ -51,8 +55,10 @@ def test_vctk_synthesis_settings_equal_yaml():
     preset = load_preset("vctk")
     assert preset.n_timesteps == cfg.test.n_timesteps
     assert preset.temperature == cfg.test.temperature
-    assert cfg.model.add_blank  # the port's Synthesizer always intersperses
-    assert (X_QUANTUM, Y_QUANTUM) == (cfg.train.x_quantum, cfg.train.y_quantum)
+    defaults = {k: p.default for k, p in inspect.signature(Synthesizer).parameters.items()}
+    assert defaults["add_blank"] == cfg.model.add_blank == preset.add_blank
+    assert (defaults["x_quantum"], defaults["y_quantum"]) == (cfg.train.x_quantum,
+                                                              cfg.train.y_quantum)
     assert cfg.vocoder == "hifigan"
     assert preset.cmu_path.endswith(cfg.path.cmu_path.removeprefix("resources"))
 

@@ -1,6 +1,7 @@
 """Port vs JAX package: the DiT middle block (einsum and flash routes) and
 the DeX U-Net denoiser with reference statistics and style, in f32 and at
-the bf16 compute dtype."""
+the bf16 compute dtype, with its DiT-cache hooks (return_mid,
+mid_override)."""
 
 import dataclasses
 
@@ -102,3 +103,54 @@ def test_dex_denoiser_matches_jax_bf16(variables):
     scale = np.abs(want).max()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=0.05 * scale, rtol=0)
+
+
+# f32: as the DeX denoiser's own test; bf16: 5% of the output's scale, as
+# there (both sides round ~20 layers to bf16 in different places)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_denoiser_mid_hooks_match_jax(variables, dtype):
+    """``return_mid`` returns the adaptors' + DiT's output in the compute
+    dtype, as JAX does; ``mid_override`` runs the conv path around a given
+    mid, skipping the adaptors and the DiT (and so the attention)."""
+    cfg = dataclasses.replace(CFG, compute_dtype=dtype)
+    model = jax_model(cfg)
+    port = build_tts(cfg)
+    load_numpy_state(port, dex_tts_flax_to_torch(variables, cfg))
+    i = _denoiser_inputs(seed=3)
+    names = ("x", "mask", "mu", "t", "means", "stds", "sty", "sty_lengths")
+
+    def jax_run(**kw):
+        return jax.jit(lambda v, *a: model.apply(
+            v, *a, method=lambda m, x, k, mu, tt, me, sd, s, sl: m.decoder(
+                x, k, mu, tt, ref=(me, sd), sty=s, sty_lengths=sl, **kw)
+        ))(variables, *(jnp.asarray(i[k]) for k in names))
+
+    def port_run(**kw):
+        with torch.no_grad():
+            return port.decoder.denoise_fn(
+                t(i["x"]), t(i["mask"]), t(i["mu"]), t(i["t"]), ref=(t(i["means"]), t(i["stds"])),
+                sty=t(i["sty"]), sty_lengths=t(i["sty_lengths"], torch.long), **kw)
+
+    want_out, want_mid = jax_run(return_mid=True)
+    got_out, got_mid = port_run(return_mid=True)
+    assert str(got_mid.dtype).removeprefix("torch.") == str(want_mid.dtype) == dtype
+    want_mid = np.asarray(want_mid.astype(jnp.float32)).transpose(0, 3, 1, 2)
+    got_mid = got_mid.float().numpy()
+    tol = dict(atol=1e-4, rtol=1e-3) if dtype == "float32" else {}
+    for got, want in ((got_out.numpy(), np.asarray(want_out)), (got_mid, want_mid)):
+        if tol:
+            np.testing.assert_allclose(got, want, **tol)
+        else:
+            np.testing.assert_allclose(got, want, atol=0.05 * np.abs(want).max(), rtol=0)
+
+    # a mid unlike the DiT's own, so the override shows
+    mid = (0.5 * want_mid[::-1]).astype(np.float32)
+    want = np.asarray(jax_run(mid_override=jnp.asarray(mid.transpose(0, 2, 3, 1))))
+    vit = port.decoder.denoise_fn.vit
+    vit.forward = lambda *a, **k: pytest.fail("the DiT ran under mid_override")
+    got = port_run(mid_override=t(mid)).numpy()
+    if tol:
+        np.testing.assert_allclose(got, want, **tol)
+    else:
+        np.testing.assert_allclose(got, want, atol=0.05 * np.abs(want).max(), rtol=0)
+    assert not np.allclose(want, np.asarray(want_out), atol=1e-3)

@@ -1,6 +1,7 @@
 """Port vs JAX package: multi-speaker GeDEX synthesis (speaker embedding
 concatenated into the text encoder and stacked as a third denoiser
-channel), 2 heun steps with shared initial noise, the Synthesizer with
+channel), 2 heun steps with shared initial noise, 3 dpmpp2m steps and 4
+steps with the DiT cache, the Synthesizer with
 speaker ids and no vocoder, and the training loss with its gradients."""
 
 import jax
@@ -62,6 +63,42 @@ def test_gedex_synthesize_matches_jax(pair):
     np.testing.assert_array_equal(got[2], want[2])
     np.testing.assert_allclose(got[0], want[0], atol=5e-4, rtol=1e-3)
     np.testing.assert_allclose(got[1], want[1], atol=2e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("sampler", [dict(num_steps=3, solver="dpmpp2m"),
+                                     dict(num_steps=4, dit_cache_interval=2)])
+def test_gedex_synthesize_samplers_match_jax(pair, sampler):
+    """dpmpp2m (3 steps) and the DiT cache (4 steps, k = 2), speakers
+    included, at the bound of the heun comparison above."""
+    model, variables, port = pair
+    rng = np.random.default_rng(0)
+    b, tx, y_max = 2, 9, 64
+    x = rng.integers(1, 30, (b, tx)).astype(np.int32)
+    x_lengths = np.asarray([tx, 6], np.int32)
+    x[1, 6:] = 0
+    spk = np.asarray([2, 0], np.int32)
+    noise = rng.standard_normal((b, CFG.n_feats, y_max)).astype(np.float32)
+
+    @jax.jit
+    def run(variables, x, x_lengths, spk, noise):
+        return model.apply(
+            variables, jax.random.PRNGKey(0), x, x_lengths, y_max_length=y_max,
+            sampler=JaxSamplerConfig(**sampler), temperature=1.5, spk=spk,
+            latents_noise=noise, method=type(model).synthesize,
+        )
+
+    want = [np.asarray(a) for a in run(variables, *(jnp.asarray(a) for a in
+                                                    (x, x_lengths, spk, noise)))]
+    with torch.no_grad():
+        got = port.synthesize(
+            t(x, torch.long), t(x_lengths, torch.long), y_max_length=y_max,
+            sampler=SamplerConfig(**sampler), temperature=1.5, spk=t(spk, torch.long),
+            latents_noise=t(noise),
+        )
+    got = [a.numpy() for a in got]
+    np.testing.assert_array_equal(got[3], want[3])  # y_lengths
+    np.testing.assert_array_equal(got[2], want[2])  # attn
+    np.testing.assert_allclose(got[1], want[1], atol=2e-3, rtol=1e-2)  # dec
 
 
 def test_gedex_synthesizer_with_speaker_ids(pair):

@@ -40,7 +40,8 @@ def test_every_module_imports_without_jax():
     assert len(_modules()) > 15
     assert {"dex_tts_tpu_torch.main", "dex_tts_tpu_torch.ops.mas", "dex_tts_tpu_torch.ops.segment",
             "dex_tts_tpu_torch.train.trainer", "dex_tts_tpu_torch.train.checkpoint",
-            "dex_tts_tpu_torch.data.dataset"} <= set(_modules())
+            "dex_tts_tpu_torch.data.dataset", "dex_tts_tpu_torch.bench",
+            "dex_tts_tpu_torch.bench_train"} <= set(_modules())
 
 
 def test_source_names_no_jax_or_jax_package():

@@ -330,3 +330,19 @@ def test_every_shape_the_earlier_kernel_took_has_a_route():
         for t_y in (1, 3, 100, 1401, 5000, 20000, 45000):
             if 4 * (2 * t_x + t_y) + 4 * (t_x + 1) <= 200 * 1024:
                 assert mas.plan(t_x, t_y)[0] != "none", (t_x, t_y)
+
+
+@pytest.mark.parametrize("shape, message", [
+    ((2, 100, 58000), r"no K4 route for \(B, Tx, Ty\) = \(2, 100, 58000\).*232448-byte limit"),
+    ((2, 20000, 1000), r"no K4 route for \(B, Tx, Ty\) = \(2, 20000, 1000\)"),
+    ((0, 96, 256), r"the batch is empty, \(B, Tx, Ty\) = \(0, 96, 256\)"),
+    ((2, 0, 256), r"Tx and Ty must be positive"),
+])
+def test_launch_refuses_shapes_without_a_route(shape, message):
+    """A shape K4 has no route for, or an empty batch, raises a ValueError
+    that names it before any launch: the wrapper checks the shape before
+    it loads the library (meta tensors carry no data at all)."""
+    value = torch.empty(shape, device="meta")
+    with pytest.raises(ValueError, match=message):
+        mas._launch(value, value)
+    assert mas.launch_plan(32, 96, 256) == mas.plan(96, 256)
