@@ -65,6 +65,19 @@ The port's benches add:
      its defaults, `--solver dpmpp2m --steps 16`, `--dit_cache 5` and
      `--family gedex --vocoder bigvgan`, and `dex_tts_tpu_torch.bench_train`
      at its defaults: each JSON line logged, the launches of each asserted.
+Loading and serving add:
+  8. the serving path from disk (`phase_serve`): the main path's DeX
+     saved through `CheckpointManager` and its HiFi-GAN in the
+     reference's weight-normed, zipped layout with a config.json, loaded
+     by `load_synthesizer` (no random init); `python -m
+     dex_tts_tpu_torch.synthesize` in-process (a sentence, and a
+     paragraph with --long), the sentence held against a direct `tts`
+     with the same seed within 1e-4 × max|wav|; then
+     `dex_tts_tpu_torch.serve`'s server on 127.0.0.1 after its warm-up,
+     16 concurrent /tts requests and 4 concurrent /tts_stream requests
+     of 6 sentences, every WAV's length, the streams' order, coalescing
+     and K1's launches asserted; /tts latency and the streams' time to
+     first audio (p50, p95) logged.
 The last two lines are the `kernels` JSON line and the device JSON line.
 Needs one card; exits non-zero without CUDA.
 """
@@ -1240,6 +1253,244 @@ def phase_main_path(card: str, preset_name: str, refs_1: dict, refs_2: dict,
     return dict(request_1=first, request_2_walls_s=walls, options=options)
 
 
+SERVE_PRESET = "vctk_bench_from_disk"  # vctk_bench with the vocoder_path the phase writes
+SERVE_SEED = 11
+STREAM_PARAGRAPHS = [" ".join(SENTENCES[(4 * k + j) % len(SENTENCES)] for j in range(6))
+                     for k in range(4)]
+
+
+def weight_normed(state: dict) -> dict:
+    """A generator state_dict in the reference's weight-norm layout: every
+    conv weight W (ndim ≥ 2) as weight_g = ‖W‖ over the non-output axes
+    and weight_v = W."""
+    out = {}
+    for key, value in state.items():
+        if key.endswith(".weight") and value.ndim >= 2:
+            out[key + "_g"] = value.norm(dim=tuple(range(1, value.ndim)), keepdim=True)
+            out[key + "_v"] = value
+        else:
+            out[key] = value
+    return out
+
+
+def write_checkpoints(directory: str) -> tuple[str, str]:
+    """The main path's seeded random DeX (`build_main_path`: vctk_bench,
+    durations pinned) saved through `CheckpointManager` as ``best-train``,
+    and its HiFi-GAN as the reference ships it: weight-normed convs under
+    ``generator``, in a plain zip (``generator_universal.pth.tar.zip``),
+    with a config.json beside it → (exp_dir, vocoder dir)."""
+    import zipfile
+
+    from dex_tts_tpu_torch.train import create_train_state
+    from dex_tts_tpu_torch.train.checkpoint import CheckpointManager
+
+    _, synth = build_main_path("vctk_bench")
+    exp_dir, voc_dir = os.path.join(directory, "exp"), os.path.join(directory, "hifigan")
+    os.makedirs(voc_dir)
+    CheckpointManager(os.path.join(exp_dir, "ckpt")).save(create_train_state(synth.model),
+                                                          "best-train")
+    raw = os.path.join(voc_dir, "generator_universal.pth.tar")
+    state = {k: v.detach().cpu() for k, v in synth.vocoder.state_dict().items()}
+    torch.save({"generator": weight_normed(state)}, raw)
+    with zipfile.ZipFile(raw + ".zip", "w") as zf:
+        zf.write(raw, os.path.basename(raw))
+    os.remove(raw)
+    cfg = synth.vocoder.cfg
+    with open(os.path.join(voc_dir, "config.json"), "w") as f:
+        json.dump({k: getattr(cfg, k) for k in ("num_mels", "upsample_rates",
+                                                "upsample_kernel_sizes", "upsample_initial_channel",
+                                                "resblock_kernel_sizes", "resblock_dilation_sizes")}
+                  | {"resblock": "1", "sampling_rate": 22050}, f)
+    return exp_dir, voc_dir
+
+
+def post_json(port: int, path: str, payload: dict, timeout: float = 300.0):
+    """POST a JSON body → (status, seconds to the first body line, lines)."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        lines, first = [], None
+        for line in r:
+            if line.strip():
+                first = first if first is not None else time.perf_counter() - t0
+                lines.append(json.loads(line))
+        return r.status, first, time.perf_counter() - t0, lines
+
+
+def concurrently(fn, args_list):
+    """Run ``fn(*args)`` for every args in a thread of its own, all
+    started together → results in order (an exception is re-raised)."""
+    import threading
+
+    results = [None] * len(args_list)
+
+    def run(i, args):
+        try:
+            results[i] = fn(*args)
+        except BaseException as exc:  # handed to the caller below
+            results[i] = exc
+
+    threads = [threading.Thread(target=run, args=(i, a)) for i, a in enumerate(args_list)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+        assert not th.is_alive(), "a client thread hung"
+    for r in results:
+        if isinstance(r, BaseException):
+            raise r
+    return results
+
+
+def phase_serve(card: str, directory: str) -> dict:
+    """The serving path from a checkpoint on disk, at vctk_bench's full
+    width with HiFi-GAN: write the checkpoints, load them through
+    `load_synthesizer` (no random init), run `python -m
+    dex_tts_tpu_torch.synthesize` in-process (one sentence, and a
+    3-sentence paragraph with --long) and hold the sentence against a
+    direct `tts` with the same seed; then `dex_tts_tpu_torch.serve`'s
+    server on 127.0.0.1 (port 0) after its warm-up, 16 concurrent /tts
+    requests of one sentence and 4 concurrent /tts_stream requests of a
+    6-sentence paragraph, every response checked. Counts are set to 0
+    before the synthesize calls and before the loads. → launches per
+    path, latencies, batch sizes."""
+    import base64
+    import dataclasses
+    import threading
+    import urllib.request
+
+    from dex_tts_tpu_torch import serve, synthesize
+    from dex_tts_tpu_torch.audio.wav import read_wav
+    from dex_tts_tpu_torch.config import PRESETS, load_preset
+    from dex_tts_tpu_torch.eval import load_synthesizer
+    from dex_tts_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+    from dex_tts_tpu_torch.ops.mas import maximum_path
+    from dex_tts_tpu_torch.ops.snake import snake_antialias
+    from dex_tts_tpu_torch.pipeline import SAMPLE_RATE, split_sentences
+    from dex_tts_tpu_torch.serving import _percentile
+
+    exp_dir, voc_dir = write_checkpoints(directory)
+    ref = write_reference_wavs(directory, 1)[0]
+    preset = dataclasses.replace(load_preset("vctk_bench"), vocoder_path=voc_dir)
+    PRESETS[SERVE_PRESET] = lambda: preset
+    synth = load_synthesizer(preset, exp_dir)
+    dit_cfg = preset.model.dit_config()
+
+    def samples(text):  # durations pinned: FRAMES_PER_TOKEN rounds up to 4
+        return 4 * len(synth.prepare_text(text)) * synth.hop
+
+    counters = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+                "maximum_path": maximum_path, "snake": snake_antialias}
+
+    def reset_counts():
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {k: fn.launches for k, fn in counters.items()}
+
+    # synthesize: one sentence, then a paragraph (each WAV in its own directory)
+    argv = ["--preset", SERVE_PRESET, "--weight_path", exp_dir, "--ref_name", ref,
+            "--seed", str(SERVE_SEED)]
+    cli = synthesize.parse_args(argv + ["--input_text", SENTENCES[5]])
+    # K1 per tts call whose DiT runs the flash route: depth × the CLIs' steps
+    per_call = dit_cfg.depth * cli.n_timesteps
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        [(path, one)] = synthesize.main(argv + ["--input_text", SENTENCES[5], "--out_dir",
+                                                os.path.join(directory, "sentence")])
+        [(long_path, long)] = synthesize.main(argv + ["--input_text", " ".join(REQUEST_2),
+                                                      "--long", "--out_dir",
+                                                      os.path.join(directory, "paragraph")])
+    synth_launches = read_counts()
+    direct = synth.tts([SENTENCES[5]], generator=torch.Generator("cuda").manual_seed(cli.seed),
+                       n_timesteps=cli.n_timesteps, temperature=cli.temperature,
+                       length_scale=cli.length_scale, ref_wavs=[ref])[0]["wav"]
+    err = float(np.abs(one["wav"] - direct).max())
+    log(f"[serve] synthesize.main vs tts, same seed: max|Δwav| {err:.3e} (bound"
+        f" {1e-4 * np.abs(direct).max():.3e}); launches {synth_launches} [{card}]")
+    assert err <= 1e-4 * np.abs(direct).max(), err
+    for p, out, want in ((path, one, samples(SENTENCES[5])),
+                         (long_path, long, sum(samples(s) for s in REQUEST_2)
+                          + 2 * int(SAMPLE_RATE * 0.2))):  # --pause_ms 200
+        wav, sr = read_wav(p)
+        assert sr == SAMPLE_RATE and wav.shape == out["wav"].shape == (want,), (p, wav.shape)
+        assert np.isfinite(wav).all() and np.isfinite(out["wav"]).all()
+    assert synth_launches["flash_attention"] > 0, synth_launches
+    assert synth_launches["flash_attention"] % per_call == 0, synth_launches
+
+    # serve: the CLI's server after its warm-up, the loads from client threads
+    args = serve.parse_args(["--preset", SERVE_PRESET, "--weight_path", exp_dir, "--ref_name", ref,
+                             "--port", "0", "--seed", str(SERVE_SEED)])
+    with contextlib.redirect_stdout(io.StringIO()):
+        srv, batcher = serve.build_server(args)
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    port = srv.server_address[1]
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        tts = concurrently(lambda s: post_json(port, "/tts", {"texts": [s]}),
+                           [(s,) for s in SENTENCES])
+        tts_wall = time.perf_counter() - t0
+        n_tts_batches = len(batcher.batch_sizes)
+        t0 = time.perf_counter()
+        streams = concurrently(lambda p: post_json(port, "/tts_stream", {"text": p}),
+                               [(p,) for p in STREAM_PARAGRAPHS])
+        stream_wall = time.perf_counter() - t0
+        serve_launches = read_counts()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        srv.shutdown()
+        batcher.close()
+        srv.server_close()
+        server.join(timeout=30)
+    for text, (status, _, _, [body]) in zip(SENTENCES, tts):
+        assert status == 200, status
+        pcm = np.frombuffer(base64.b64decode(body["wavs"][0]), dtype="<i2")
+        assert pcm.shape == (samples(text),), (pcm.shape, samples(text))
+    pause = int(SAMPLE_RATE * 0.2)  # the default pause_ms of /tts_stream and --long
+    for paragraph, (status, _, _, lines) in zip(STREAM_PARAGRAPHS, streams):
+        assert status == 200, status
+        sentences = split_sentences(paragraph)
+        assert [line.get("i") for line in lines[:-1]] == list(range(len(sentences))), lines[-1]
+        assert lines[-1].get("done") and lines[-1]["sentences"] == len(sentences), lines[-1]
+        for i, (line, s) in enumerate(zip(lines[:-1], sentences)):
+            pcm = np.frombuffer(base64.b64decode(line["pcm"]), dtype="<i2")
+            assert pcm.shape == (samples(s) + (pause if i else 0),), (i, pcm.shape)
+    n_sentences = len(SENTENCES) + sum(len(split_sentences(p)) for p in STREAM_PARAGRAPHS)
+    assert health["device"] == "cuda" and health["card"] == card, health
+    assert health["sentences"] == n_sentences, health
+    sizes = list(batcher.batch_sizes)
+    assert max(sizes) > 1 and sum(sizes) == n_sentences, sizes
+    k1 = serve_launches["flash_attention"]
+    assert k1 > 0 and k1 % per_call == 0, serve_launches
+    for name in ("snake", "flash_attention_bwd", "maximum_path"):  # HiFi-GAN, inference
+        assert serve_launches[name] == 0 == synth_launches[name], (serve_launches, synth_launches)
+    lat = sorted(r[2] for r in tts)
+    ttfa = sorted(r[1] for r in streams)
+    result = dict(
+        launches={"synthesize": synth_launches, "serve": serve_launches},
+        tts_p50_s=_percentile(lat, 0.5), tts_p95_s=_percentile(lat, 0.95), tts_wall_s=tts_wall,
+        ttfa_p50_s=_percentile(ttfa, 0.5), ttfa_p95_s=_percentile(ttfa, 0.95),
+        stream_wall_s=stream_wall, batch_sizes=sizes, tts_batches=n_tts_batches,
+        synthesize_max_abs_err=err,
+    )
+    log(f"[serve] /tts x16 concurrent: latency p50 {result['tts_p50_s']:.4f} s, p95"
+        f" {result['tts_p95_s']:.4f} s, wall {tts_wall:.4f} s in {n_tts_batches} batches;"
+        f" /tts_stream x4 (6 sentences each): time to first audio p50"
+        f" {result['ttfa_p50_s']:.4f} s, p95 {result['ttfa_p95_s']:.4f} s, wall"
+        f" {stream_wall:.4f} s; batch sizes {sizes}; K1 launches {k1} [{card}]")
+    return result
+
+
 # the port bench's runs: (label, argv, K1 launches, K2 launches) per
 # text→WAV call: K1 4 per DiT evaluation (depth 4), K2 109 per BigVGAN call
 BENCH_RUNS = [
@@ -1332,13 +1583,16 @@ def main():
         wavs = write_reference_wavs(tmp, 16)
         bigvgan = phase_main_path(card, "vctk_bench_bigvgan", {"ref_wavs": wavs},
                                   {"ref_wavs": wavs[:3]})
+    with tempfile.TemporaryDirectory() as tmp:
+        served = phase_serve(card, tmp)
     with torch_tf32_defaults():
         benches = phase_bench(card)
     paths = {"hifigan": hifigan["request_1"]["launches"], "bigvgan": bigvgan["request_1"]["launches"],
              **{f"hifigan_{k}": v["launches"] for k, v in hifigan["options"].items()},
+             **served["launches"],
              **{f"bench_{run[0]}": benches[run[0]]["launches"] for run in BENCH_RUNS}}
     train_launches = {**{f"train_{k}": v["launches"] for k, v in train.items()},
-                      "bench_train": benches["train_default"]["launches"]}
+                      "bench_train": benches["train_default"]["launches"], **served["launches"]}
 
     bf16, f32 = report[torch.bfloat16], report[torch.float32]
     sb, sf = snake[torch.bfloat16], snake[torch.float32]
@@ -1449,6 +1703,10 @@ def main():
         + ", ".join(f"{k} {v['steps_per_s']:.4f}" for k, v in train.items())
         + f"; train card vs CPU worst error/bound {train_parity['worst_ratio']:.3e};"
         f" Trainer.fit {fit['wall_s']:.1f} s")
+    log(f"serving from a checkpoint: /tts x16 latency p50 {served['tts_p50_s']:.4f} s, p95"
+        f" {served['tts_p95_s']:.4f} s; /tts_stream x4 time to first audio p50"
+        f" {served['ttfa_p50_s']:.4f} s, p95 {served['ttfa_p95_s']:.4f} s; batch sizes"
+        f" {served['batch_sizes']} [{card}]")
     log("port bench: e2e RTF " + ", ".join(f"{k} {v['value']}" for k, v in benches.items()
                                           if k != "train_default")
         + f"; train {benches['train_default']['value']} steps/s, peak"

@@ -10,7 +10,10 @@ bench_train.py trains); ``vctk_bench`` is the benchmark's full-size DeX
 the same DeX with the bf16 BigVGAN at the released 22 kHz 80-band widths,
 the JAX bench's ``--vocoder bigvgan`` (bench.py:108-119); ``gedex_bench``
 is the benchmark's GeDEX (`__graft_entry__._full_size_gedex`: patch 7,
-stride 4, one speaker, no style) with HiFi-GAN.
+stride 4, one speaker, no style) with HiFi-GAN. ``libritts``,
+``gedex_vctk`` and ``gedex_ljspeech`` are transcribed from their YAMLs
+in dex_tts_tpu/config/presets/ (GeDEX: no style; VCTK's 108 speakers,
+LJSpeech's one with DiT patch 7 / stride 4; both read EMA weights).
 """
 
 from __future__ import annotations
@@ -63,7 +66,10 @@ class TrainConfig:
 class Preset:
     """A model config plus what inference and training read from the rest
     of its YAML (``vocoder``, ``test``, ``path``, ``preprocess``,
-    ``train``)."""
+    ``train``). ``ema`` is ``test.ema`` (synthesize from the EMA weights);
+    ``vocoder_path`` is ``path.vocoder_path``, the directory (or file) of
+    the vocoder's reference checkpoint, relative to the working
+    directory."""
 
     model: TTSConfig
     vocoder: HiFiGANConfig | BigVGANConfig = field(default_factory=HiFiGANConfig)
@@ -76,6 +82,8 @@ class Preset:
     add_blank: bool = True
     sample_rate: int = 22050
     hop_length: int = 256
+    ema: bool = False
+    vocoder_path: str = "hifigan/weights"
 
     def out_size(self) -> int | None:
         """Training mel segment length: ``fix_len`` s of audio, rounded for
@@ -228,7 +236,59 @@ def gedex_bench() -> Preset:
     )
 
 
-PRESETS = {"vctk": vctk, "esd": esd, "vctk_bench": vctk_bench,
+def libritts() -> Preset:
+    """dex_tts_tpu/config/presets/libritts.yaml: the VCTK model with
+    LibriTTS's filelists and ``train:`` block."""
+    return dataclasses.replace(
+        vctk(),
+        train=TrainConfig(
+            epoch=1000, batch_size=32, lr=1e-4, save_epoch=200, syn_every=200, fix_len=2,
+            out_size=True, max_grad=1.0, ema_decay=0.99999, mask_ratio=0.0, ref_type="mel",
+            sty_type="mel", aug_type=("N", "N", "N"),
+            unseen_spk=(18, 22, 44, 50, 55, 58, 64, 90, 93, 98), x_quantum=32, y_quantum=64,
+        ),
+        train_path="filelists/LibriTTS/train.txt",
+        val_path="filelists/LibriTTS/valid.txt",
+    )
+
+
+def _gedex(n_spks: int, patch_size: int, stride_size: int, dataset: str,
+           epoch: int) -> Preset:
+    """The GeDEX presets' shared fields (reference: GeDEX-TTS/config/
+    LJSpeech/base.yaml): the VCTK encoder and decoder, no style encoders,
+    EMA weights at test time."""
+    dex = vctk().model
+    model = dataclasses.replace(
+        dex, n_spks=n_spks, use_style=False,
+        dit=dataclasses.replace(dex.dit, patch_size=patch_size, stride_size=stride_size),
+    )
+    return Preset(
+        model=model,
+        train=TrainConfig(
+            epoch=epoch, batch_size=32, lr=1e-4, save_epoch=200, syn_every=200, fix_len=2,
+            out_size=True, max_grad=1.0, ema_decay=0.9999, mask_ratio=0.0, unseen_spk=(),
+            x_quantum=32, y_quantum=64,
+        ),
+        train_path=f"filelists/{dataset}/train.txt",
+        val_path=f"filelists/{dataset}/valid.txt",
+        ema=True,
+    )
+
+
+def gedex_vctk() -> Preset:
+    """dex_tts_tpu/config/presets/gedex_vctk.yaml: 108 speakers, DiT
+    patch 3 / stride 2."""
+    return _gedex(108, 3, 2, "VCTK", epoch=1000)
+
+
+def gedex_ljspeech() -> Preset:
+    """dex_tts_tpu/config/presets/gedex_ljspeech.yaml: one speaker, DiT
+    patch 7 / stride 4."""
+    return _gedex(1, 7, 4, "LJSpeech", epoch=2000)
+
+
+PRESETS = {"vctk": vctk, "esd": esd, "libritts": libritts, "gedex_vctk": gedex_vctk,
+           "gedex_ljspeech": gedex_ljspeech, "vctk_bench": vctk_bench,
            "vctk_bench_bigvgan": vctk_bench_bigvgan, "gedex_bench": gedex_bench}
 
 

@@ -1,4 +1,5 @@
-"""JAX-package variables → this port's torch state_dict.
+"""JAX-package variables → this port's torch state_dict, and the readers
+of reference-format torch checkpoints.
 
 A copy of the mapping in dex_tts_tpu/export.py (``dex_tts_flax_to_torch``,
 ``hifigan_flax_to_torch`` and ``bigvgan_flax_to_torch``), which writes
@@ -9,6 +10,12 @@ dicts of numpy arrays; output: a flat dict of numpy arrays that
 ``model`` argument only needs the facade's config attributes, so a
 `TTSConfig` or a JAX facade both work. Vocoder weight norm is folded, as
 the port's generators hold plain convs.
+
+The readers at the end (`fold_weight_norm`, `load_torch_checkpoint`,
+`load_torch_trainer_checkpoint`) are copies of dex_tts_tpu/convert.py's:
+a reference `.pth` (or one of this port's checkpoints, which use the
+reference trainer's layout) comes out as a flat {name: numpy array}
+dict in the reference's parameter names, which are the port's.
 """
 
 from __future__ import annotations
@@ -400,3 +407,100 @@ def load_numpy_state(module: torch.nn.Module, state: dict) -> None:
         {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in state.items()},
         strict=True,
     )
+
+
+# ---------------------------------------------------------------------------
+# Reference-format torch checkpoints
+
+
+def fold_weight_norm(state: dict) -> dict:
+    """Fold weight_norm (weight_g, weight_v) pairs into plain weights —
+    what the reference's remove_weight_norm() does at load
+    (reference: DEX-TTS/hifigan/models.py:166-173). On numpy in float64,
+    cast to float32, as the JAX package folds."""
+    out = {}
+    for key, value in state.items():
+        if key.endswith("weight_g"):
+            continue
+        if key.endswith("weight_v"):
+            base = key[: -len("_v")]
+            g = np.asarray(state[base + "_g"], np.float64)
+            v = np.asarray(value, np.float64)
+            axes = tuple(range(1, v.ndim))
+            norm = np.sqrt(np.sum(v**2, axis=axes, keepdims=True))
+            out[base] = (g * v / norm).astype(np.float32)
+        else:
+            out[key] = np.asarray(value)
+    return out
+
+
+def load_torch_checkpoint(path: str, key: str | None = None) -> dict:
+    """Load a .pth/.pth.tar/.pth.tar.zip file into a {name: np.ndarray} dict.
+
+    Handles the distribution formats the reference points users at
+    (reference: DEX-TTS/src/utils.py:251-281): a torch-serialized file
+    (zip-format or legacy pickle) or a *plain* zip archive wrapping one
+    (e.g. ``generator_universal.pth.tar.zip`` from the HiFi-GAN release).
+
+    key: select a specific sub-dict of a trainer checkpoint instead of the
+    auto-unwrap — e.g. "ema" for the EMA weights of a reference TTS
+    checkpoint {'scores','state_dict','ema','optimizer'}
+    (reference: DEX-TTS/src/train.py:112-122).
+    """
+    ckpt = _load_torch_raw(path)
+    if key is not None:
+        ckpt = ckpt[key]
+    else:
+        if isinstance(ckpt, dict) and "generator" in ckpt:
+            ckpt = ckpt["generator"]
+        if isinstance(ckpt, dict) and "state_dict" in ckpt:
+            ckpt = ckpt["state_dict"]
+    return _tensors_to_numpy(ckpt)
+
+
+def _tensors_to_numpy(state: dict) -> dict:
+    return {k: v.numpy() for k, v in state.items() if hasattr(v, "numpy")}
+
+
+def load_torch_trainer_checkpoint(path: str) -> tuple[dict, dict | None]:
+    """One disk read of a reference trainer checkpoint → (state_dict, ema).
+
+    ema is None when the file is a bare state_dict (no trainer wrapper) or
+    the wrapper has no 'ema' key. reference: DEX-TTS/src/train.py:112-122.
+    """
+    ckpt = _load_torch_raw(path)
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        sd = _tensors_to_numpy(ckpt["state_dict"])
+        ema = ckpt.get("ema")
+        return sd, (_tensors_to_numpy(ema) if isinstance(ema, dict) else None)
+    return _tensors_to_numpy(ckpt), None
+
+
+def _load_torch_raw(path: str):
+    def _load_file(p):
+        return torch.load(p, map_location="cpu", weights_only=True)
+
+    try:
+        ckpt = _load_file(path)
+    except Exception as first_exc:
+        # maybe an outer plain zip wrapping the checkpoint file: extract the
+        # largest member and load that. NB a torch zip-format file that
+        # merely failed weights_only deserialization is also a valid
+        # zipfile — detect it by its data.pkl record and re-raise the
+        # original error rather than extracting a raw storage blob.
+        import tempfile
+        import zipfile
+
+        if not zipfile.is_zipfile(path):
+            raise
+        with zipfile.ZipFile(path) as zf:
+            members = [n for n in zf.namelist() if not n.endswith("/")]
+            if not members or any(n.endswith("data.pkl") for n in members):
+                raise
+            inner = max(members, key=lambda n: zf.getinfo(n).file_size)
+            with tempfile.TemporaryDirectory() as td:
+                try:
+                    ckpt = _load_file(zf.extract(inner, td))
+                except Exception:
+                    raise first_exc  # wrapper theory wrong: original error
+    return ckpt

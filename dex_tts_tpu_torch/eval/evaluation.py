@@ -1,0 +1,197 @@
+"""Checkpoint loading for inference (port of the inference half of
+dex_tts_tpu/eval/evaluation.py: `load_vocoder`,
+`_find_torch_tts_checkpoint`, `load_synthesizer`).
+
+Two differences from the JAX package, both on purpose:
+  * a missing checkpoint raises (`FileNotFoundError`, naming what was
+    tried) unless the caller passes ``random_init=True``; the JAX loader
+    falls back to random weights with only a warning;
+  * the vocoder's orbax directories (``gen_best``/``gen_last``, the JAX
+    vocoder trainer's format) are not read: only reference torch files.
+The objective evaluation (``run_objective_eval``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import warnings
+
+import torch
+
+from dex_tts_tpu_torch.config import Preset, build_model, build_vocoder
+from dex_tts_tpu_torch.convert import (
+    fold_weight_norm,
+    load_numpy_state,
+    load_torch_checkpoint,
+    load_torch_trainer_checkpoint,
+)
+from dex_tts_tpu_torch.models.edm import SamplerConfig
+from dex_tts_tpu_torch.models.vocoder import BigVGANConfig
+from dex_tts_tpu_torch.pipeline import Synthesizer
+from dex_tts_tpu_torch.utils.device import resolve_device
+
+# config.json keys that set a generator's architecture
+# (reference: DEX-TTS/src/utils.py:255-262)
+ARCH_KEYS = ("num_mels", "upsample_rates", "upsample_kernel_sizes",
+             "upsample_initial_channel", "resblock_kernel_sizes", "resblock_dilation_sizes")
+BIGVGAN_ARCH_KEYS = ARCH_KEYS + ("activation", "snake_logscale")
+# the reference BigVGAN's alias-free activations keep their fixed
+# Kaiser-sinc taps as persistent buffers; the port computes them from the
+# config, so the reader drops them
+BIGVGAN_FILTER_SUFFIXES = (".upsample.filter", ".downsample.lowpass.filter")
+
+
+def read_vocoder_arch(path: str, bigvgan: bool) -> dict:
+    """The architecture keys of ``config.json`` beside a vocoder checkpoint,
+    as the JAX loader reads them (lists as tuples, nested lists as tuples
+    of tuples); {} when there is no such file."""
+    cfg_json = os.path.join(path, "config.json") if path else ""
+    if not os.path.isfile(cfg_json):
+        return {}
+    with open(cfg_json) as f:
+        j = json.load(f)
+    return {
+        k: tuple(tuple(e) if isinstance(e, list) else e for e in j[k])
+        if isinstance(j[k], list)
+        else j[k]
+        for k in (BIGVGAN_ARCH_KEYS if bigvgan else ARCH_KEYS)
+        if k in j
+    }
+
+
+def load_vocoder(preset: Preset, strict: bool = True, device=None, random_init: bool = False):
+    """The preset's HiFi-GAN or BigVGAN with the reference torch weights
+    under ``preset.vocoder_path``, on ``device`` (CUDA by default).
+    reference: DEX-TTS/src/utils.py:251-281.
+
+    The architecture is the preset's vocoder config with the keys of a
+    ``config.json`` beside the checkpoint. Candidates: for HiFi-GAN
+    ``generator_LJSpeech.pth.tar.zip``, ``generator_universal.pth.tar.zip``,
+    ``generator_universal.pth.tar`` and the path itself; for BigVGAN
+    ``g_05000000`` and the path. Weight norm is folded and the weights
+    load with ``load_state_dict(strict=strict)``. No file raises
+    `FileNotFoundError` unless ``random_init`` (smoke runs only).
+
+    dtype: the JAX loader's "auto" picks bf16 for BigVGAN on the TPU and
+    f32 everywhere else; its counterpart here is bf16 for BigVGAN on CUDA
+    (the K2 snake kernel), f32 on the CPU, and f32 for HiFi-GAN."""
+    device = resolve_device(device)
+    bigvgan = isinstance(preset.vocoder, BigVGANConfig)
+    path = preset.vocoder_path
+    arch = read_vocoder_arch(path, bigvgan)
+    arch["dtype"] = "bfloat16" if bigvgan and device.type == "cuda" else "float32"
+    vocoder = build_vocoder(dataclasses.replace(preset.vocoder, **arch), device=device)
+    if bigvgan:
+        names = ["g_05000000"]
+    else:
+        names = ["generator_LJSpeech.pth.tar.zip", "generator_universal.pth.tar.zip",
+                 "generator_universal.pth.tar"]
+    candidates = [os.path.join(path, n) for n in names] + [path] if path else []
+    for cand in candidates:
+        if os.path.isfile(cand):
+            state = fold_weight_norm(load_torch_checkpoint(cand))
+            if bigvgan:
+                state = {k: v for k, v in state.items()
+                         if not k.endswith(BIGVGAN_FILTER_SUFFIXES)}
+            vocoder.load_state_dict({k: torch.from_numpy(v.copy()) for k, v in state.items()},
+                                    strict=strict)
+            return vocoder
+    kind = "bigvgan" if bigvgan else "hifigan"
+    if not random_init:
+        raise FileNotFoundError(
+            f"no {kind} checkpoint under vocoder_path={path!r} (tried "
+            f"{candidates or 'nothing: the path is unset'}); pass random_init=True for "
+            "random weights (smoke runs only)"
+        )
+    warnings.warn(f"no {kind} checkpoint under {path!r}: RANDOM-INIT vocoder "
+                  "(smoke/debug only; output is noise)")
+    return vocoder
+
+
+# reference checkpoint names per tag (reference: DEX-TTS/src/train.py:112-122)
+REFERENCE_NAMES = {
+    "best-train": "model-train-best.pth",
+    "best-val": "model-val-best.pth",
+    "last": "model-last.pth",
+}
+
+
+def _torch_tts_candidates(exp_dir: str, tag: str) -> list[str]:
+    cands = [REFERENCE_NAMES.get(tag, f"model-{tag}.pth")]
+    if tag == "best-train":
+        # the default tag: any reference checkpoint qualifies (reference
+        # runs always have model-last.pth; bests only when val improved)
+        cands += ["model-val-best.pth", "model-last.pth"]
+    return [os.path.join(exp_dir, name) for name in cands]
+
+
+def _find_torch_tts_checkpoint(exp_dir: str, tag: str) -> str | None:
+    """Locate a reference-format torch TTS checkpoint for a tag.
+
+    Migration path: a user coming from the reference can point the CLIs
+    straight at their trained experiment dir (or a .pth file); naming per
+    reference DEX-TTS/src/train.py:112-122 (model-{train,val}-best.pth,
+    model-last.pth, model-{epoch}.pth)."""
+    if os.path.isfile(exp_dir):
+        return exp_dir
+    for cand in _torch_tts_candidates(exp_dir, tag):
+        if os.path.isfile(cand):
+            return cand
+    return None
+
+
+def load_synthesizer(preset: Preset, exp_dir: str, n_timesteps: int = 50,
+                     tag: str = "best-train", dit_cache_interval: int = 1,
+                     solver: str = "euler", device=None,
+                     random_init: bool = False) -> Synthesizer:
+    """A Synthesizer with the preset's model and vocoder, weights from disk.
+
+    The checkpoint is, in this order, the port's own ``<exp_dir>/ckpt/
+    <tag>.pth`` (`train.checkpoint.CheckpointManager`, `main.train`), or a
+    reference ``.pth``: ``exp_dir`` itself when it is a file, else the
+    reference names for ``tag`` under it. With ``preset.ema`` the EMA
+    weights are used (the raw ones, with a warning, when the file has
+    none). A missing checkpoint raises `FileNotFoundError` unless
+    ``random_init`` (smoke runs only; the vocoder then may be random too)."""
+    if dit_cache_interval > 1 and n_timesteps % dit_cache_interval:
+        # fail fast at startup — otherwise a misconfigured server boots
+        # healthy and 500s every request
+        raise ValueError(
+            f"n_timesteps {n_timesteps} must be a multiple of "
+            f"dit_cache_interval {dit_cache_interval}"
+        )
+    if solver not in ("euler", "heun", "dpmpp2m"):
+        raise ValueError(f"unknown solver {solver!r}")
+    if solver != "euler" and dit_cache_interval > 1:
+        raise ValueError("dit_cache_interval>1 requires the euler solver")
+    device = resolve_device(device)
+    model = build_model(preset.model, device=device)
+    own = os.path.join(exp_dir, "ckpt", f"{tag}.pth")
+    path = own if os.path.isfile(own) else _find_torch_tts_checkpoint(exp_dir, tag)
+    if path is not None:
+        state_dict, ema_dict = load_torch_trainer_checkpoint(path)
+        if preset.ema:
+            if ema_dict is None:
+                warnings.warn(f"preset.ema is set but {path} has no 'ema' weights; "
+                              "using the raw state_dict")
+            else:
+                state_dict = ema_dict
+        load_numpy_state(model, state_dict)
+    elif random_init:
+        warnings.warn(f"no checkpoint {tag!r} under {exp_dir}: synthesizing with "
+                      "RANDOM-INIT weights (smoke/debug only; output is noise)")
+    else:
+        raise FileNotFoundError(
+            f"no checkpoint for tag {tag!r}: tried "
+            f"{[own] + _torch_tts_candidates(exp_dir, tag)}; pass random_init=True "
+            "for random weights (smoke runs only)"
+        )
+    vocoder = load_vocoder(preset, device=device, random_init=random_init)
+    return Synthesizer(
+        model, vocoder, cmu_path=preset.cmu_path, add_blank=preset.add_blank,
+        sampler=SamplerConfig(num_steps=n_timesteps, solver=solver,
+                              dit_cache_interval=dit_cache_interval),
+        device=device,
+    )

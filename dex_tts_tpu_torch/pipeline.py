@@ -12,13 +12,16 @@ speaker id) → waveform (port of dex_tts_tpu/pipeline.py, `tts` path).
 The buckets and batch padding are those of the JAX package, so both pick
 the same shapes for the same inputs. Style comes in as reference wav files
 (``ref_wavs``, through `prepare_reference`) or as pre-extracted
-``ref_feats`` [(mel (F, T), lf0 (T,)), ...]; `tts_stream` and `tts_long`
-are not ported yet.
+``ref_feats`` [(mel (F, T), lf0 (T,)), ...]. Long texts go through
+`split_sentences` and `tts_stream` (batches ramping 1 → 2 → … →
+max_batch, one result per sentence as its batch completes) or
+`tts_long` (full batches, one WAV with pauses).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Sequence
 
 import numpy as np
@@ -37,8 +40,53 @@ HOP_LENGTH = 256
 SAMPLE_RATE = 22050
 
 
+def split_sentences(text: str, max_chars: int = 400) -> list[str]:
+    """Split a paragraph into sentence-sized chunks for batched synthesis.
+
+    Splits after sentence-final punctuation followed by whitespace (so
+    ellipses stay one chunk and decimals like "3.14" never split); chunks
+    with no word character are dropped. A chunk still longer than
+    ``max_chars`` is further split at the comma or space nearest its
+    midpoint, recursively. Never returns empty chunks."""
+    out = [
+        c.strip()
+        for c in re.split(r"(?<=[.!?;])\s+", text.strip())
+        if re.search(r"\w", c)
+    ]
+
+    def shorten(s: str) -> list[str]:
+        if len(s) <= max_chars:
+            return [s]
+        mid = len(s) // 2
+        for sep in (",", " "):
+            cands = [i for i, c in enumerate(s) if c == sep and 0 < i < len(s) - 1]
+            if cands:
+                cut = min(cands, key=lambda i: abs(i - mid)) + 1
+                left, right = s[:cut].strip(), s[cut:].strip()
+                if left and right:
+                    return shorten(left) + shorten(right)
+        return [s]  # one unbreakable token — let bucketing cap it
+
+    return [c for s in out for c in shorten(s)]
+
+
 def _bucket(n: int, quantum: int, minimum: int = 0) -> int:
     return max(minimum, -(-n // quantum) * quantum)
+
+
+def ramp_spans(n: int, max_batch: int, first_batch: int = 1) -> list[tuple[int, int]]:
+    """(lo, hi) spans covering range(n) with sizes ramping
+    ``first_batch → 2x → … → max_batch`` — the batching schedule shared by
+    `Synthesizer.tts_stream` and the server's /tts_stream endpoint (small
+    first batch for time-to-first-audio, full batches for the tail)."""
+    max_batch = max(1, max_batch)
+    size = max(1, min(first_batch, max_batch))
+    spans, lo = [], 0
+    while lo < n:
+        hi = min(n, lo + size)
+        spans.append((lo, hi))
+        lo, size = hi, min(max_batch, size * 2)
+    return spans
 
 
 class Synthesizer:
@@ -209,3 +257,85 @@ class Synthesizer:
                 item["wav"] = wavs[i, : lens[i] * self.hop].copy()
             results.append(item)
         return results
+
+    def tts_stream(
+        self,
+        text: str,
+        generator: torch.Generator | None = None,
+        max_chars: int = 400,
+        max_batch: int = 16,
+        first_batch: int = 1,
+        **tts_kwargs,
+    ):
+        """Incremental long-form synthesis: a generator yielding one
+        result dict per sentence, in order, as its batch completes.
+
+        Sentence batches ramp ``first_batch → 2x → … → max_batch``, so the
+        first audio is ready after one small synthesis (time-to-first-
+        audio) while the tail rides full batches (throughput). Each yielded
+        dict is a `tts` result plus ``index`` (sentence position) and
+        ``text``. One ``generator`` (a fresh one seeded with 0 when None)
+        feeds every batch in turn.
+
+        Per-sentence conditioning (`spk_ids`/`ref_wavs`/`ref_feats`) in
+        ``tts_kwargs`` may be a single value — it is broadcast to every
+        sentence (a single reference wav is prepared once, not per
+        sentence).
+
+        Splitting and validation happen at the call (a bad ``text`` raises
+        here, not at the first ``next()``); the returned generator only
+        synthesizes."""
+        chunks = split_sentences(text, max_chars=max_chars)
+        if not chunks:
+            raise ValueError("no synthesizable text")
+        n = len(chunks)
+        tts_kwargs = dict(tts_kwargs)
+        if tts_kwargs.get("ref_wavs") is not None and len(tts_kwargs["ref_wavs"]) == 1:
+            tts_kwargs["ref_feats"] = [self.prepare_reference(tts_kwargs.pop("ref_wavs")[0])]
+        for k in ("spk_ids", "ref_wavs", "ref_feats"):
+            v = tts_kwargs.get(k)
+            if v is not None and len(v) == 1 and n > 1:
+                tts_kwargs[k] = list(v) * n
+        if generator is None:
+            generator = torch.Generator(self.device).manual_seed(0)
+        spans = ramp_spans(n, max_batch, first_batch)
+        return self._tts_stream_gen(chunks, generator, spans, tts_kwargs)
+
+    def _tts_stream_gen(self, chunks, generator, spans, tts_kwargs):
+        for lo, hi in spans:
+            group_kwargs = dict(tts_kwargs)
+            for k in ("spk_ids", "ref_wavs", "ref_feats"):
+                if group_kwargs.get(k) is not None:
+                    group_kwargs[k] = group_kwargs[k][lo:hi]
+            for i, r in enumerate(self.tts(chunks[lo:hi], generator=generator, **group_kwargs)):
+                r = dict(r)
+                r["index"] = lo + i
+                r["text"] = chunks[lo + i]
+                yield r
+
+    def tts_long(
+        self,
+        text: str,
+        generator: torch.Generator | None = None,
+        pause_ms: float = 200.0,
+        max_chars: int = 400,
+        max_batch: int = 16,
+        **tts_kwargs,
+    ) -> dict:
+        """Paragraph synthesis: `split_sentences`, batched calls of up to
+        ``max_batch`` sentences (`tts_stream` without the ramp), and the
+        waveforms joined with ``pause_ms`` of silence between sentences.
+        → {"wav", "sentences": [per-sentence dicts]} (no "wav" when the
+        sentences have none)."""
+        results = list(self.tts_stream(text, generator=generator, max_chars=max_chars,
+                                       max_batch=max_batch, first_batch=max_batch,
+                                       **tts_kwargs))
+        if "wav" not in results[0]:
+            return {"sentences": results}
+        gap = np.zeros(int(SAMPLE_RATE * pause_ms / 1e3), np.float32)
+        parts: list[np.ndarray] = []
+        for i, r in enumerate(results):
+            if i:
+                parts.append(gap)
+            parts.append(np.asarray(r["wav"], np.float32))
+        return {"wav": np.concatenate(parts), "sentences": results}

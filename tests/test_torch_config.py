@@ -18,7 +18,8 @@ from dex_tts_tpu.export import bigvgan_flax_to_torch as jax_bigvgan_export  # no
 from dex_tts_tpu.models.edm import SamplerConfig as JaxSamplerConfig  # noqa: E402
 from dex_tts_tpu.models.vocoder import BigVGANConfig as JaxBigVGANConfig  # noqa: E402
 from dex_tts_tpu.models.vocoder import BigVGANGenerator as JaxBigVGAN  # noqa: E402
-from dex_tts_tpu_torch.config import build_model, build_vocoder, load_preset  # noqa: E402
+from dex_tts_tpu_torch.config import TrainConfig, build_model, build_vocoder, load_preset  # noqa: E402
+from dex_tts_tpu_torch.models.vocoder import HiFiGANConfig  # noqa: E402
 from dex_tts_tpu_torch.convert import (  # noqa: E402
     bigvgan_flax_to_torch,
     dex_tts_flax_to_torch,
@@ -44,7 +45,9 @@ def assert_same_fields(port_cfg: TTSConfig, jax_model):
 @pytest.mark.parametrize(
     "name,jax_factory",
     [("vctk", lambda: jax_build_model(jax_load_preset("vctk"))), ("vctk_bench", _full_size_dex),
-     ("vctk_bench_bigvgan", _full_size_dex), ("gedex_bench", _full_size_gedex)],
+     ("vctk_bench_bigvgan", _full_size_dex), ("gedex_bench", _full_size_gedex)]
+    + [(name, lambda name=name: jax_build_model(jax_load_preset(name)))
+       for name in ("libritts", "gedex_vctk", "gedex_ljspeech")],
 )
 def test_preset_equals_jax(name, jax_factory):
     assert_same_fields(load_preset(name).model, jax_factory())
@@ -61,6 +64,35 @@ def test_vctk_synthesis_settings_equal_yaml():
                                                               cfg.train.y_quantum)
     assert cfg.vocoder == "hifigan"
     assert preset.cmu_path.endswith(cfg.path.cmu_path.removeprefix("resources"))
+
+
+@pytest.mark.parametrize("name", ["vctk", "esd", "libritts", "gedex_vctk", "gedex_ljspeech"])
+def test_preset_inference_and_train_fields_equal_yaml(name):
+    """What the loader and the entry points read besides the model: the
+    test block (``ema``, steps, temperature), the vocoder and its path,
+    the filelists and the ``train:`` block (JAX main.py's defaults for
+    keys the YAML leaves out)."""
+    cfg = jax_load_preset(name)
+    preset = load_preset(name)
+    assert preset.ema == cfg.test.ema
+    assert preset.vocoder_path == cfg.path.vocoder_path
+    assert (preset.n_timesteps, preset.temperature) == (cfg.test.n_timesteps, cfg.test.temperature)
+    assert preset.add_blank == cfg.model.add_blank
+    assert cfg.vocoder == "hifigan" and preset.vocoder == HiFiGANConfig()
+    assert (preset.sample_rate, preset.hop_length) == (cfg.preprocess.sample_rate,
+                                                       cfg.preprocess.hop_length)
+    if name == "vctk":  # synthesis only: the port trains the ESD preset of this model
+        assert preset.train is None
+        return
+    tr = cfg.train
+    assert preset.train == TrainConfig(
+        epoch=tr.epoch, batch_size=tr.batch_size, lr=tr.lr, save_epoch=tr.save_epoch,
+        syn_every=tr.syn_every, fix_len=tr.fix_len, out_size=tr.out_size,
+        max_grad=tr.max_grad, ema_decay=tr.ema_decay, mask_ratio=tr.mask_ratio,
+        ref_type=tr.get("ref_type", "mel"), sty_type=tr.get("sty_type", "mel"),
+        aug_type=tuple(tr.get("aug_type", ("N", "N", "N"))), unseen_spk=tuple(tr.unseen_spk),
+        x_quantum=tr.x_quantum, y_quantum=tr.y_quantum)
+    assert (preset.train_path, preset.val_path) == (cfg.path.train_path, cfg.path.val_path)
 
 
 def test_full_width_layout_loads_strictly():

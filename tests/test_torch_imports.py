@@ -41,7 +41,9 @@ def test_every_module_imports_without_jax():
     assert {"dex_tts_tpu_torch.main", "dex_tts_tpu_torch.ops.mas", "dex_tts_tpu_torch.ops.segment",
             "dex_tts_tpu_torch.train.trainer", "dex_tts_tpu_torch.train.checkpoint",
             "dex_tts_tpu_torch.data.dataset", "dex_tts_tpu_torch.bench",
-            "dex_tts_tpu_torch.bench_train"} <= set(_modules())
+            "dex_tts_tpu_torch.bench_train", "dex_tts_tpu_torch.eval",
+            "dex_tts_tpu_torch.eval.evaluation", "dex_tts_tpu_torch.serving",
+            "dex_tts_tpu_torch.synthesize", "dex_tts_tpu_torch.serve"} <= set(_modules())
 
 
 def test_source_names_no_jax_or_jax_package():
@@ -86,3 +88,26 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert Synthesizer(model, device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_main.train(load_preset("esd"), "unused")  # the train entry point
+
+
+def test_load_and_serve_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The loader, `python -m dex_tts_tpu_torch.synthesize` and
+    `python -m dex_tts_tpu_torch.serve` default to CUDA and raise without
+    it, before looking for any checkpoint."""
+    from dex_tts_tpu_torch import serve, synthesize
+    from dex_tts_tpu_torch.config import PRESETS, Preset
+    from dex_tts_tpu_torch.eval import load_synthesizer, load_vocoder
+    from tests.torch_port_util import tiny_cfg
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    preset = Preset(model=tiny_cfg(), vocoder_path=str(tmp_path))
+    monkeypatch.setitem(PRESETS, "tiny_no_cuda", lambda: preset)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_synthesizer(preset, str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_vocoder(preset)
+    argv = ["--preset", "tiny_no_cuda", "--weight_path", str(tmp_path), "--random_init"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        synthesize.main(argv + ["--input_text", "Hi.", "--out_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.build_server(serve.parse_args(argv + ["--port", "0"]))
