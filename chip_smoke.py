@@ -59,7 +59,8 @@ Training (the third slice) adds:
      bench_train's batch through `make_train_step`, attention "auto"
      (einsum at 880 tokens) and "flash_bf16", launch counts asserted;
   6. `Trainer.fit` through the train entry point on a dataset the script
-     writes, checkpoints, and a resume that repeats the next step.
+     writes (attention "flash_bf16"), checkpoints, and a resume that
+     repeats the next step.
 The port's benches add:
   7. `dex_tts_tpu_torch.bench` (in-process, PyTorch's TF32 defaults) at
      its defaults, `--solver dpmpp2m --steps 16`, `--dit_cache 5` and
@@ -78,6 +79,24 @@ Loading and serving add:
      of 6 sentences, every WAV's length, the streams' order, coalescing
      and K1's launches asserted; /tts latency and the streams' time to
      first audio (p50, p95) logged.
+Vocoder training and the DeX trainer's hooks add:
+  2c. the snake under autograd (`SnakeKernelFunction`: kernel forward,
+     plain backward) against autograd through the plain version, bf16 and
+     f32, at the vocoder train step's six stage shapes (16 × 8192) and a
+     ragged one: gradients bit-equal, forward within K2's / K3's bounds,
+     one launch per forward and none per backward; its time per step;
+  3d. one vocoder GAN step, card against CPU: the full-width f32 BigVGAN
+     with the default MPD/MRD on 2 × 2048 samples, the critics' loss and
+     gradients, then the generator's loss parts and gradients against the
+     same updated critics; a CPU control without snakes far outside;
+  6. (extended) `--init_from` a reference-layout checkpoint, synthesis
+     every epoch (K1 launches counted), a SIGTERM inside the loader;
+  9. the vocoder training main path, `python -m
+     dex_tts_tpu_torch.train_vocoder --vocoder bigvgan` in-process at its
+     defaults (109 K3 launches per step, every generator gradient finite
+     and non-zero in the first step, steps/s, peak memory), `gen_last.pth`
+     through `load_vocoder`, a resume from ``last``, then `--vocoder
+     hifigan` (no snake).
 The last two lines are the `kernels` JSON line and the device JSON line.
 Needs one card; exits non-zero without CUDA.
 """
@@ -87,6 +106,7 @@ import io
 import json
 import math
 import os
+import re
 import sys
 import time
 
@@ -736,6 +756,88 @@ def phase_snake():
     return report
 
 
+# BigVGAN's snake inputs (B, T, C) in a vocoder train step at the CLI's
+# batch 16 × segment 8192 (32 mel frames), with the same launches per stage
+SNAKE_TRAIN_STAGES = [(16, 128, 768), (16, 512, 384), (16, 1024, 192),
+                      (16, 2048, 96), (16, 4096, 48), (16, 8192, 24)]
+
+
+def phase_snake_grad():
+    """The snake under autograd on the card (`SnakeKernelFunction`: the
+    kernel forward, the plain backward with the exact sine) against
+    autograd through the plain version, bf16 (polynomial forward) and f32,
+    at the vocoder train step's six stage shapes and one ragged shape: the
+    gradients for x, alpha and inv_beta bit-equal (cuDNN in its
+    deterministic mode; the plain version's replicate padding sums without
+    atomics), the forward within K2's / K3's bounds, one launch per forward
+    and none in the backward. Then, per stage shape × its launches, the
+    device time of kernel forward + plain backward (what one train step
+    spends in the snakes), of the kernel forward alone and of the plain
+    forward + backward. → report per dtype."""
+    from dex_tts_tpu_torch.ops.snake import snake_antialias, snake_antialias_reference
+
+    report = {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dtype, impl, fast in ((torch.bfloat16, "auto", True), (torch.float32, "pallas", False)):
+            worst = 0.0
+            g = torch.Generator(device="cuda").manual_seed(41)
+            for i, shape in enumerate(SNAKE_TRAIN_STAGES + [(3, 777, 24)]):
+                x, al, ib = snake_inputs(*shape, dtype, seed=200 + i)
+                dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+                ins = [v.clone().requires_grad_(True) for v in (x, al, ib)]
+                snake_antialias.launches = 0
+                y = snake_antialias(*ins, impl=impl)
+                fwd_launches = snake_antialias.launches
+                y.backward(dy)
+                torch.cuda.synchronize()
+                assert (fwd_launches, snake_antialias.launches) == (1, 1), (
+                    fwd_launches, snake_antialias.launches)
+                plain = [v.clone().requires_grad_(True) for v in (x, al, ib)]
+                snake_antialias_reference(*plain, 12, False).backward(dy)
+                for name, a, b in zip(("x", "alpha", "inv_beta"), ins, plain):
+                    assert a.grad.dtype == b.grad.dtype == dtype, (name, a.grad.dtype)
+                    assert torch.equal(a.grad, b.grad), (dtype, shape, name)
+                want = snake_antialias_reference(x, al, ib, 12, fast)
+                err = (y.detach().float() - want.float()).abs().max().item()
+                bound = (8e-3 * want.float().abs().max().item() if dtype == torch.bfloat16
+                         else 2e-5)
+                assert math.isfinite(err) and err <= bound, (dtype, shape, err, bound)
+                worst = max(worst, err)
+            stages = []
+            for shape, n in zip(SNAKE_TRAIN_STAGES, SNAKE_STAGE_LAUNCHES):
+                x, al, ib = snake_inputs(*shape, dtype, seed=0)
+                dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+                ins = [v.clone().requires_grad_(True) for v in (x, al, ib)]
+
+                def kernel_fwd_bwd():
+                    snake_antialias(*ins, impl=impl).backward(dy)
+
+                def plain_fwd_bwd():
+                    snake_antialias_reference(*ins, 12, False).backward(dy)
+
+                stages.append(dict(
+                    shape=list(shape), launches=n,
+                    fwd_bwd_ms=time_ms(kernel_fwd_bwd, 5),
+                    fwd_ms=time_ms(lambda: snake_antialias(x, al, ib, impl=impl), 10),
+                    plain_fwd_bwd_ms=time_ms(plain_fwd_bwd, 5)))
+            per_step = {k: sum(st[k] * st["launches"] for st in stages)
+                        for k in ("fwd_bwd_ms", "fwd_ms", "plain_fwd_bwd_ms")}
+            per_step["plain_bwd_ms"] = per_step["fwd_bwd_ms"] - per_step["fwd_ms"]
+            report[dtype] = dict(max_abs_err_fwd=worst, grads_bit_equal=True, stages=stages,
+                                 per_train_step=per_step)
+            log(f"snake under autograd, {dtype}: gradients bit-equal to the plain version's at"
+                f" {len(SNAKE_TRAIN_STAGES) + 1} shapes, forward max_abs_err {worst:.3e}, launches"
+                f" 1 per forward / 0 per backward; per vocoder train step ({SNAKE_LAUNCHES}"
+                f" snakes at 16 x 8192): kernel fwd + plain bwd {per_step['fwd_bwd_ms']:.3f} ms"
+                f" (kernel fwd {per_step['fwd_ms']:.3f}, plain bwd {per_step['plain_bwd_ms']:.3f}),"
+                f" plain fwd + bwd {per_step['plain_fwd_bwd_ms']:.3f} ms")
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    return report
+
+
 def perturb_(model, seed, scale=0.02):
     """Move every parameter by seeded noise (the JAX package zero-inits the
     DiT's adaLN and final linear and the Rezero gates, which would hide the
@@ -871,6 +973,142 @@ def phase_bigvgan_card_vs_cpu():
     assert math.isfinite(err) and err <= WAV_ATOL, err
     assert identity_err > 10 * WAV_ATOL, identity_err
     return dict(launches=launches, max_abs_err=err, snakes_removed_err=identity_err)
+
+
+VOCODER_LOSS_RTOL = 1e-4  # card vs CPU vocoder step, f32 with TF32 off
+# per tensor, error ≤ rel × (max|g| + 1e-3 × the largest): the critics'
+# gradients as the DeX train step's; the generator's looser. The two
+# generators' outputs already differ (4.0e-5 at a std of 0.3: 109 snakes
+# with the kernel's sinf, in a net whose perturbed weights amplify), the
+# critics' leaky ReLUs turn that into 1.3-5.7e-3 (relative) in the
+# gradient that reaches the waveform, and sums with cancellation (snake
+# alpha, biases, ups.0) carry it to 6.7e-3 of the scale in the worst
+# tensors, 2e-4 in the median one (measured on an H100). A
+# wrong backward moves most tensors, so the median has the DeX bound.
+VOCODER_GRAD_REL = {"critic": 1e-3, "generator": 5e-2}
+VOCODER_GRAD_MEDIAN_REL = 1e-3
+
+
+def phase_vocoder_card_vs_cpu():
+    """One vocoder GAN step's losses and gradients, card against CPU: the
+    full-width BigVGAN (`BigVGANConfig()`: 1536 channels, rates (4, 4, 2,
+    2, 2, 2), f32, TF32 off) with the default MPD/MRD on 2 × 2048
+    samples, the same weights on both sides (the generator moved off the
+    reference init as in `phase_bigvgan_card_vs_cpu`, so the snakes shape
+    the output). The critics' loss and every critic gradient on each
+    side's generator output (the card's through the snake kernel); then
+    the CPU's critic update is copied to the card and the generator's loss
+    parts and every generator gradient (of the total, as a step takes it)
+    are compared against those same updated critics (bounds at
+    `VOCODER_GRAD_REL`, the median generator tensor at the DeX step's).
+    A CPU control with every snake replaced by its input must land more
+    than 10× outside the bounds. → report."""
+    import copy
+    from unittest import mock
+
+    from dex_tts_tpu_torch.audio.stft import MelSpectrogram
+    from dex_tts_tpu_torch.models.vocoder import BigVGANConfig, bigvgan
+    from dex_tts_tpu_torch.ops.snake import snake_antialias
+    from dex_tts_tpu_torch.train import vocoder as tv
+
+    cpu = tv.create_vocoder_train_state(BigVGANConfig(), seed=31, device="cpu")
+    mel_input, mel_loss = MelSpectrogram(), MelSpectrogram(fmax=11025.0)
+    rng = np.random.default_rng(33)
+    tt = np.arange(2048) / 22050.0
+    wav = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 300, (2, 1)) * tt * (1 + 2 * tt))
+    wav = torch.from_numpy((wav + 0.01 * rng.standard_normal(wav.shape)).astype(np.float32))
+    g = torch.Generator().manual_seed(32)
+    with torch.no_grad():
+        for name, p in cpu.generator.named_parameters():
+            if name.endswith((".alpha", ".beta")):
+                p.add_(0.5 * torch.randn(p.shape, generator=g))
+            elif name.endswith("weight") and not name.startswith("conv_pre"):
+                p.mul_(2.0)
+        # conv_post scaled so the generated waveform has a std near 0.3:
+        # unsaturated, and its log-mel above the 1e-5 floor, where the L1
+        # mel term has a gradient
+        post = cpu.generator.conv_post
+        scale = 0.3 / cpu.generator(tv.vocoder_mels(wav, mel_input, mel_loss)[0]).std()
+        post.weight.mul_(scale)
+        post.bias.mul_(scale)
+    generator = copy.deepcopy(cpu.generator).cuda()
+    critics = copy.deepcopy(cpu.critics).cuda()
+
+    def critic_side(gen, crit, device):
+        w = wav.to(device)
+        mel_in, target = tv.vocoder_mels(w, mel_input, mel_loss)
+        fake = gen(mel_in)
+        crit.zero_grad(set_to_none=True)
+        loss_d = tv.critic_loss(crit, w, fake.detach())
+        loss_d.backward()
+        return ({"loss_disc": loss_d.item()},
+                {n: p.grad.detach().cpu() for n, p in crit.named_parameters()}, fake, target)
+
+    def generator_side(gen, crit, fake, target, device):
+        crit.requires_grad_(False)
+        try:
+            losses = tv.generator_losses(crit, wav.to(device), fake, target, mel_loss, 45.0)
+            names, params = zip(*gen.named_parameters())
+            # unused: alpha and beta in the control without snakes
+            got = torch.autograd.grad(losses["loss_gen"], params, allow_unused=True)
+            grads = {n: torch.zeros(p.shape) if v is None else v.detach().cpu()
+                     for n, p, v in zip(names, params, got)}
+        finally:
+            crit.requires_grad_(True)
+        return {k: v.item() for k, v in losses.items()}, grads
+
+    def worst_ratio(got, want):
+        """(max of error / bound over the losses and every gradient, where,
+        the median generator tensor's error / (max|g| + 1e-3 × top))."""
+        rows = [(abs(got[0][k] - v) / (VOCODER_LOSS_RTOL * abs(v)), k) for k, v in want[0].items()]
+        median = None
+        for i, part in ((1, "critic"), (2, "generator")):
+            top = max(v.abs().max().item() for v in want[i].values())
+            assert top > 0, f"every {part} gradient is 0: the comparison would be empty"
+            assert sorted(got[i]) == sorted(want[i])
+            scaled = [((got[i][n] - v).abs().max().item() / (v.abs().max().item() + 1e-3 * top),
+                       f"{part} {n}") for n, v in want[i].items()]
+            rows += [(e / VOCODER_GRAD_REL[part], n) for e, n in scaled]
+            if part == "generator":
+                median = sorted(e for e, _ in scaled)[len(scaled) // 2]
+        return (*max(rows), median)
+
+    def cpu_run():
+        losses_d, grads_d, fake, target = critic_side(cpu.generator, cpu.critics, "cpu")
+        losses_g, grads_g = generator_side(cpu.generator, updated, fake, target, "cpu")
+        return {**losses_d, **losses_g}, grads_d, grads_g
+
+    # the critics after the CPU's update: both sides' generator objective
+    # runs against these
+    losses_d, grads_d, fake, target = critic_side(cpu.generator, cpu.critics, "cpu")
+    updated = copy.deepcopy(cpu.critics)
+    for p, grad in zip(updated.parameters(), grads_d.values()):
+        p.grad = grad.clone()
+    tv.make_vocoder_optimizer(updated).step()
+    losses_g, grads_g = generator_side(cpu.generator, updated, fake, target, "cpu")
+    want = ({**losses_d, **losses_g}, grads_d, grads_g)
+    with mock.patch.object(bigvgan, "snake_antialias", lambda x, *a, **kw: x):
+        control = worst_ratio(cpu_run(), want)
+    snake_antialias.launches = 0
+    got_d, got_grads_d, fake, target = critic_side(generator, critics, "cuda")
+    fwd_launches = snake_antialias.launches
+    got_g, got_grads_g = generator_side(generator, copy.deepcopy(updated).cuda(), fake, target,
+                                        "cuda")
+    torch.cuda.synchronize()
+    assert (fwd_launches, snake_antialias.launches) == (SNAKE_LAUNCHES, SNAKE_LAUNCHES), (
+        fwd_launches, snake_antialias.launches)
+    ratio = worst_ratio(({**got_d, **got_g}, got_grads_d, got_grads_g), want)
+    log(f"vocoder GAN step card vs CPU (f32, full-width BigVGAN + MPD/MRD, 2 x 2048 samples):"
+        f" losses {dict(got_d, **got_g)} vs {want[0]}; worst error/bound {ratio[0]:.3e}"
+        f" ({ratio[1]}), median generator tensor {ratio[2]:.3e} x (max|g| + 1e-3 x top);"
+        f" control, snakes removed on the CPU: {control[0]:.3e} ({control[1]}); snake launches"
+        f" {snake_antialias.launches} (bounds: losses rtol {VOCODER_LOSS_RTOL}, grads"
+        f" {VOCODER_GRAD_REL} x (max|g| + 1e-3 x top), generator median"
+        f" {VOCODER_GRAD_MEDIAN_REL})")
+    assert ratio[0] <= 1.0 and ratio[2] <= VOCODER_GRAD_MEDIAN_REL, ratio
+    assert control[0] > 10, control
+    return dict(worst_ratio=ratio[0], generator_median=ratio[2], control_ratio=control[0],
+                launches=snake_antialias.launches)
 
 
 TRAIN_OUT_SIZE = 172  # esd: 2 s of mel (22050 Hz, hop 256) → 172 frames
@@ -1096,27 +1334,96 @@ def phase_train_main_path(card: str, attention: str, steps: int = 10) -> dict:
 
 def phase_trainer_fit(card: str, directory: str) -> dict:
     """`Trainer.fit` through the train entry point: the ESD preset at full
-    width, batch 4, two epochs over 16 utterances written to disk from a
-    seed; the checkpoint files appear, and a resume from "last" repeats
-    the next step (same weights, optimizer, EMA and generator; same
-    losses)."""
+    width under attention "flash_bf16", batch 4, two epochs over 16
+    utterances written to disk from a seed.
+      * ``--init_from`` a reference-layout DeX checkpoint the phase writes
+        (``model-last.pth`` with a distinct EMA): a fresh state's weights,
+        buffers and EMA equal the file's, and the fit starts from it;
+      * synthesis every epoch (``syn_every=1``) with a HiFi-GAN written as
+        the reference ships it: the sample WAVs appear, each mel MAE is
+        finite, and K1 launches 2 samples × depth × 50 steps per call;
+      * the checkpoint files appear, and a resume from "last" repeats the
+        next step (same weights, optimizer, EMA and generator; same losses);
+      * a SIGTERM raised inside the train loader: ``last`` and ``preempt``
+        are written, `fit` returns early, the signal handlers come back,
+        and a resume from ``preempt`` repeats the next step."""
     import dataclasses
+    import signal
+    from unittest import mock
 
     from dex_tts_tpu_torch import main as port_main
-    from dex_tts_tpu_torch.config import build_model, load_preset
+    from dex_tts_tpu_torch.config import build_model, build_vocoder, load_preset
+    from dex_tts_tpu_torch.models.vocoder import HiFiGANConfig
+    from dex_tts_tpu_torch.ops.attention import flash_attention
     from dex_tts_tpu_torch.train import create_train_state, make_train_step
     from dex_tts_tpu_torch.train.trainer import metrics_to_host
 
     train_path, val_path = write_training_set(os.path.join(directory, "data"), 16)
-    preset = load_preset("esd")
-    preset = dataclasses.replace(preset, train_path=train_path, val_path=val_path,
-                                 train=dataclasses.replace(preset.train, epoch=2, batch_size=4))
+    voc_dir = os.path.join(directory, "hifigan")
+    torch.manual_seed(42)
+    vocoder = build_vocoder(HiFiGANConfig(), device="cuda")
+    perturb_(vocoder, seed=42, scale=0.002)
+    write_hifigan_release(voc_dir, vocoder)
+    del vocoder
+    esd = load_preset("esd")
+    preset = dataclasses.replace(
+        esd, train_path=train_path, val_path=val_path, vocoder_path=voc_dir,
+        model=dataclasses.replace(esd.model, dit=dataclasses.replace(esd.model.dit,
+                                                                     attention="flash_bf16")),
+        train=dataclasses.replace(esd.train, epoch=2, batch_size=4, syn_every=1))
+
+    # --init_from: a reference-layout checkpoint with a distinct EMA
+    ref_exp = os.path.join(directory, "reference_exp")
+    os.makedirs(ref_exp)
+    torch.manual_seed(43)
+    source = build_model(preset.model, device="cuda")
+    perturb_(source, seed=43)
+    weights = {k: v.detach().cpu() for k, v in source.state_dict().items()}
+    ema = {k: v + 0.01 if v.is_floating_point() else v for k, v in weights.items()}
+    torch.save({"scores": {}, "state_dict": weights, "ema": ema, "optimizer": {}},
+               os.path.join(ref_exp, "model-last.pth"))
+    del source
+    torch.manual_seed(5)
+    warm = create_train_state(build_model(preset.model, device="cuda"), seed=5)
+    port_main.warm_start_state(warm, ref_exp)
+    for k, v in warm.model.state_dict().items():
+        assert torch.equal(v.cpu(), weights[k]), k
+    assert all(torch.equal(v.cpu(), ema[k]) for k, v in warm.ema.items())
+    del warm
+
+    syn_calls = []
+    make_callback = port_main.make_synthesis_callback
+
+    def counted_callback(*args, **kwargs):
+        syn_fn = make_callback(*args, **kwargs)
+
+        def counted(state, epoch):
+            before = flash_attention.launches
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                syn_fn(state, epoch)
+            syn_calls.append(dict(epoch=epoch, flash_attention=flash_attention.launches - before,
+                                  mel_mae=[float(v) for v in re.findall(r"mel_mae=(\S+)",
+                                                                        out.getvalue())]))
+            assert state.model.training, "periodic synthesis left the model in eval mode"
+
+        return counted
+
     exp = os.path.join(directory, "exp")
     t0 = time.perf_counter()
-    trainer = port_main.train(preset, exp, seed=1, device="cuda")
+    flash_attention.launches = 0
+    with mock.patch.object(port_main, "make_synthesis_callback", counted_callback):
+        trainer = port_main.train(preset, exp, seed=1, device="cuda", init_from=ref_exp)
     wall = time.perf_counter() - t0
+    fit_launches = flash_attention.launches
     names = sorted(os.listdir(os.path.join(exp, "ckpt")))
     assert {"last.pth", "best-train.pth", "best-val.pth"} <= set(names), names
+    samples = sorted(os.listdir(os.path.join(exp, "sample")))
+    assert samples == ["epoch1_0.wav", "epoch1_1.wav", "epoch2_0.wav", "epoch2_1.wav"], samples
+    per_call = 2 * preset.model.dit.depth * 50
+    assert [c["flash_attention"] for c in syn_calls] == [per_call, per_call], syn_calls
+    assert all(len(c["mel_mae"]) == 2 and all(map(math.isfinite, c["mel_mae"]))
+               for c in syn_calls), syn_calls
     state = trainer.state
     assert state.step == 8, state.step
     torch.manual_seed(5)
@@ -1129,16 +1436,218 @@ def phase_trainer_fit(card: str, directory: str) -> dict:
     assert torch.equal(state.generator.get_state(), fresh.generator.get_state())
     batch = next(iter(port_main.make_loaders(preset, seed=1)[0]()))
     step = make_train_step(out_size=preset.out_size(), ema_decay=preset.train.ema_decay)
-    want = metrics_to_host(step(state, batch))
-    got = metrics_to_host(step(fresh, batch))
-    log(f"Trainer.fit (esd width, batch 4, 2 epochs x 4 steps) {wall:.1f} s, checkpoints"
-        f" {names}; next step live {want}, resumed {got} [{card}]")
+
+    def assert_repeats(live, resumed, label):
+        want = metrics_to_host(step(live, batch))
+        got = metrics_to_host(step(resumed, batch))
+        for k in want:
+            if k == "grad_norm":  # reductions in the backward need not repeat bit for bit
+                assert math.isclose(got[k], want[k], rel_tol=1e-4), (label, k, got[k], want[k])
+            else:
+                assert got[k] == want[k], (label, k, got[k], want[k])
+        return want
+
+    want = assert_repeats(state, fresh, "last")
+    log(f"Trainer.fit (esd width, flash_bf16, batch 4, 2 epochs x 4 steps, --init_from, syn_every"
+        f" 1) {wall:.1f} s, checkpoints {names}, samples {samples}; synthesis per epoch"
+        f" {syn_calls}; K1 launches over the fit {fit_launches}; next step live {want}, resumed"
+        f" equal [{card}]")
+    del trainer, state, fresh
+
+    # SIGTERM inside the train loader of the entry point
+    make_loaders = port_main.make_loaders
+
+    def interrupted(preset, seed):
+        train_fn, valid_fn, ds = make_loaders(preset, seed)
+
+        def train_loader():
+            for i, b in enumerate(train_fn()):
+                if i == 2:
+                    signal.raise_signal(signal.SIGTERM)
+                yield b
+
+        return train_loader, valid_fn, ds
+
+    stop_exp = os.path.join(directory, "stopped")
+    before = signal.getsignal(signal.SIGTERM)
+    no_syn = dataclasses.replace(preset, train=dataclasses.replace(preset.train, syn_every=0))
+    with mock.patch.object(port_main, "make_loaders", interrupted):
+        stopped = port_main.train(no_syn, stop_exp, seed=1, device="cuda")
+    assert signal.getsignal(signal.SIGTERM) == before
+    assert stopped.state.step == 2, stopped.state.step
+    stop_names = sorted(os.listdir(os.path.join(stop_exp, "ckpt")))
+    assert stop_names == ["last.pth", "preempt.pth"], stop_names
+    torch.manual_seed(6)
+    resumed = create_train_state(build_model(preset.model, device="cuda"), seed=6)
+    stopped.ckpt.restore(resumed, "preempt")
+    assert resumed.step == 2
+    preempt_next = assert_repeats(stopped.state, resumed, "preempt")
+    log(f"SIGTERM in the loader at batch 3 of epoch 1: fit returned at step 2, checkpoints"
+        f" {stop_names}, handlers restored; next step live and resumed from preempt equal"
+        f" ({preempt_next}) [{card}]")
+    del stopped, resumed
+    torch.cuda.empty_cache()
+    return dict(checkpoints=names, wall_s=wall, next_step=want, synthesis=syn_calls,
+                fit_flash_launches=fit_launches, preempt_checkpoints=stop_names)
+
+
+VOCODER_STEPS = 12  # BigVGAN steps of the vocoder training main path
+VOCODER_STEPS_HIFIGAN = 4
+
+
+def phase_vocoder_train(card: str, directory: str) -> dict:
+    """The vocoder training main path: `python -m
+    dex_tts_tpu_torch.train_vocoder --vocoder bigvgan` in this process at
+    the CLI's defaults (full-width f32 BigVGAN, default MPD/MRD, batch 16,
+    segment 8192) on 16 reference WAVs the phase writes, ``VOCODER_STEPS``
+    steps, PyTorch's TF32 defaults. The snake count is set to 0 just
+    before and read just after: 109 K3 launches per step, each step's
+    counted. A finite, non-zero gradient on every generator parameter in
+    the first step. Steps/s over the steps after the first and peak memory
+    are logged with the card line. Then ``gen_last.pth`` loads strictly
+    through `load_vocoder` (on the CPU in f32: the trained generator's
+    output bit for bit; on the card, where it serves in bf16: the trained
+    weights in bf16, bit for bit), a resume from ``last`` repeats the next
+    step, and ``VOCODER_STEPS_HIFIGAN`` steps of ``--vocoder hifigan`` run
+    with no snake launch. → report."""
+    import copy
+    import dataclasses
+    from unittest import mock
+
+    from dex_tts_tpu_torch import train_vocoder
+    from dex_tts_tpu_torch.audio.stft import MelSpectrogram
+    from dex_tts_tpu_torch.config import build_vocoder, load_preset
+    from dex_tts_tpu_torch.data.vocoder_dataset import WavSegmentDataset, wav_paths_from_source
+    from dex_tts_tpu_torch.eval.evaluation import load_vocoder
+    from dex_tts_tpu_torch.models.vocoder import BigVGANConfig
+    from dex_tts_tpu_torch.ops.snake import snake_antialias
+    from dex_tts_tpu_torch.train import vocoder as tv
+
+    wav_dir = os.path.join(directory, "wavs")
+    os.makedirs(wav_dir)
+    write_reference_wavs(wav_dir, 16)
+    make_step = tv.make_vocoder_train_step
+
+    def run(kind, steps):
+        """The CLI in-process → (state, its stdout's JSON lines, per-step
+        snake launches, end time of each step, first step's gradient
+        checks, peak GiB, ckpt_dir)."""
+        per_step, ends, first = [], [], {}
+
+        def counted_factory(*args, **kwargs):
+            step = make_step(*args, **kwargs)
+
+            def counted(state, batch):
+                before = snake_antialias.launches
+                metrics = step(state, batch)
+                per_step.append(snake_antialias.launches - before)
+                if state.step == 1:
+                    grads = [(n, p.grad) for n, p in state.generator.named_parameters()]
+                    finite = torch.stack([g.isfinite().all() for _, g in grads]).cpu().tolist()
+                    nonzero = torch.stack([g.abs().max() > 0 for _, g in grads]).cpu().tolist()
+                    first.update(n=len(grads),
+                                 bad=[n for (n, _), f, z in zip(grads, finite, nonzero)
+                                      if not (f and z)])
+                torch.cuda.synchronize()
+                ends.append(time.perf_counter())
+                return metrics
+
+            return counted
+
+        ckpt_dir = os.path.join(directory, f"ckpt_{kind}")
+        argv = ["--data", wav_dir, "--vocoder", kind, "--steps", str(steps), "--log_every", "2",
+                "--ckpt_dir", ckpt_dir]
+        out = io.StringIO()
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(train_vocoder, "make_vocoder_train_step", counted_factory):
+            snake_antialias.launches = 0
+            with contextlib.redirect_stdout(out):
+                state = train_vocoder.main(argv)
+            launches = snake_antialias.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        lines = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith("{")]
+        for line in lines:
+            log(f"[train_vocoder {kind}] {json.dumps(line)}")
+        return state, lines, launches, per_step, ends, first, peak, ckpt_dir
+
+    state, lines, launches, per_step, ends, first, peak, ckpt_dir = run("bigvgan", VOCODER_STEPS)
+    steps_per_s = (VOCODER_STEPS - 1) / (ends[-1] - ends[0])
+    log(f"[vocoder train, BigVGAN f32 full width, MPD/MRD, 16 x 8192] {VOCODER_STEPS} steps:"
+        f" {steps_per_s:.4f} steps/s after the first ({(ends[-1] - ends[0]) / (VOCODER_STEPS - 1):.4f}"
+        f" s per step), peak memory {peak:.2f} GiB, snake launches {launches} ({per_step} per"
+        f" step), first step: {first['n']} generator gradients, none zero or not finite:"
+        f" {not first['bad']}; last {lines[-1]} [{card}]")
+    assert launches == VOCODER_STEPS * SNAKE_LAUNCHES and per_step == [SNAKE_LAUNCHES] * VOCODER_STEPS, (
+        launches, per_step)
+    assert first["n"] > 0 and not first["bad"], first
+    assert lines and all(math.isfinite(v) for k, v in lines[-1].items() if k.startswith("loss")), lines
+    assert {"last.pth", "gen_last.pth"} <= set(os.listdir(ckpt_dir))
+
+    # the serving handoff: gen_last.pth through load_vocoder
+    preset = dataclasses.replace(load_preset("vctk_bench_bigvgan"), vocoder=BigVGANConfig(),
+                                 vocoder_path=ckpt_dir)
+    mel = torch.randn(2, 80, 32, generator=torch.Generator().manual_seed(51))
+    served_cpu = load_vocoder(preset, device="cpu")
+    with torch.no_grad():
+        exact = torch.equal(served_cpu(mel), copy.deepcopy(state.generator).cpu()(mel))
+    del served_cpu
+    served = load_vocoder(preset, device="cuda")
+    trained_bf16 = build_vocoder(BigVGANConfig(dtype="bfloat16"), device="cuda")
+    trained_bf16.load_state_dict(state.generator.state_dict())
+    with torch.no_grad():
+        same_weights = all(torch.equal(v, state.generator.state_dict()[k])
+                           for k, v in served.state_dict().items())
+        wav_served = served(mel.cuda())
+        wav_bf16 = trained_bf16(mel.cuda())
+        wav_f32 = state.generator(mel.cuda())
+    served_vs_f32 = (wav_served - wav_f32).abs().max().item()
+    log(f"gen_last.pth through load_vocoder: CPU f32 output equal to the trained generator's"
+        f" {exact}; card (bf16) weights equal {same_weights}, output equal to the trained weights"
+        f" in bf16 {torch.equal(wav_served, wav_bf16)}, {served_vs_f32:.3e} off the f32 output")
+    assert exact and same_weights and torch.equal(wav_served, wav_bf16)
+    del served, trained_bf16
+
+    # a resume from "last" repeats the next step
+    fresh = tv.create_vocoder_train_state(BigVGANConfig(), seed=77, device="cuda")
+    tv.VocoderCheckpoints(ckpt_dir).restore(fresh, "last")
+    assert fresh.step == state.step == VOCODER_STEPS
+    batch = next(WavSegmentDataset(wav_paths_from_source(wav_dir), seed=5).batches(16, 1))
+    step = tv.make_vocoder_train_step(MelSpectrogram(), MelSpectrogram(fmax=11025.0))
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = {k: v.item() for k, v in step(state, batch).items()}
+        got = {k: v.item() for k, v in step(fresh, batch).items()}
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    gen_off = max((p - q).abs().max().item()
+                  for p, q in zip(state.generator.parameters(), fresh.generator.parameters()))
+    log(f"vocoder resume from last: next step live {want}, resumed {got}; generators"
+        f" {gen_off:.3e} apart after it [{card}]")
+    # the critics' loss is a forward at equal weights; the rest follows the
+    # critics' update (cuDNN deterministic); the generator's gradient passes
+    # reflect-pad backwards that accumulate with atomics
+    assert got["loss_disc"] == want["loss_disc"], (got, want)
     for k in want:
-        if k == "grad_norm":  # reductions in the backward need not repeat bit for bit
-            assert math.isclose(got[k], want[k], rel_tol=1e-4), (k, got[k], want[k])
-        else:
-            assert got[k] == want[k], (k, got[k], want[k])
-    return dict(checkpoints=names, wall_s=wall, next_step=want)
+        assert math.isclose(got[k], want[k], rel_tol=1e-6), (k, got[k], want[k])
+    assert gen_off <= 1e-6, gen_off
+    del state, fresh
+    torch.cuda.empty_cache()
+
+    hifi, hifi_lines, hifi_launches, _, hifi_ends, hifi_first, hifi_peak, _ = run(
+        "hifigan", VOCODER_STEPS_HIFIGAN)
+    hifi_rate = (VOCODER_STEPS_HIFIGAN - 1) / (hifi_ends[-1] - hifi_ends[0])
+    log(f"[vocoder train, HiFi-GAN f32, MPD/MRD, 16 x 8192] {VOCODER_STEPS_HIFIGAN} steps:"
+        f" {hifi_rate:.4f} steps/s after the first, peak memory {hifi_peak:.2f} GiB, snake"
+        f" launches {hifi_launches}; last {hifi_lines[-1]} [{card}]")
+    assert hifi_launches == 0 and hifi.step == VOCODER_STEPS_HIFIGAN and not hifi_first["bad"]
+    del hifi
+    torch.cuda.empty_cache()
+    return dict(bigvgan=dict(steps_per_s=steps_per_s, peak_gib=peak, launches=launches,
+                             per_step=SNAKE_LAUNCHES, last=lines[-1]),
+                hifigan=dict(steps_per_s=hifi_rate, peak_gib=hifi_peak, launches=hifi_launches,
+                             last=hifi_lines[-1]),
+                resume=dict(live=want, resumed=got, generator_off=gen_off))
 
 
 def build_main_path(preset_name: str = "vctk_bench"):
@@ -1279,29 +1788,36 @@ def write_checkpoints(directory: str) -> tuple[str, str]:
     and its HiFi-GAN as the reference ships it: weight-normed convs under
     ``generator``, in a plain zip (``generator_universal.pth.tar.zip``),
     with a config.json beside it → (exp_dir, vocoder dir)."""
-    import zipfile
-
     from dex_tts_tpu_torch.train import create_train_state
     from dex_tts_tpu_torch.train.checkpoint import CheckpointManager
 
     _, synth = build_main_path("vctk_bench")
     exp_dir, voc_dir = os.path.join(directory, "exp"), os.path.join(directory, "hifigan")
-    os.makedirs(voc_dir)
     CheckpointManager(os.path.join(exp_dir, "ckpt")).save(create_train_state(synth.model),
                                                           "best-train")
+    write_hifigan_release(voc_dir, synth.vocoder)
+    return exp_dir, voc_dir
+
+
+def write_hifigan_release(voc_dir: str, vocoder) -> None:
+    """``vocoder`` (a HiFiGANGenerator) as the reference ships it, into
+    ``voc_dir``: weight-normed convs under ``generator``, in a plain zip
+    (``generator_universal.pth.tar.zip``), with a config.json beside it."""
+    import zipfile
+
+    os.makedirs(voc_dir)
     raw = os.path.join(voc_dir, "generator_universal.pth.tar")
-    state = {k: v.detach().cpu() for k, v in synth.vocoder.state_dict().items()}
+    state = {k: v.detach().cpu() for k, v in vocoder.state_dict().items()}
     torch.save({"generator": weight_normed(state)}, raw)
     with zipfile.ZipFile(raw + ".zip", "w") as zf:
         zf.write(raw, os.path.basename(raw))
     os.remove(raw)
-    cfg = synth.vocoder.cfg
+    cfg = vocoder.cfg
     with open(os.path.join(voc_dir, "config.json"), "w") as f:
         json.dump({k: getattr(cfg, k) for k in ("num_mels", "upsample_rates",
                                                 "upsample_kernel_sizes", "upsample_initial_channel",
                                                 "resblock_kernel_sizes", "resblock_dilation_sizes")}
                   | {"resblock": "1", "sampling_rate": 22050}, f)
-    return exp_dir, voc_dir
 
 
 def post_json(port: int, path: str, payload: dict, timeout: float = 300.0):
@@ -1572,11 +2088,15 @@ def main():
     phase_card_vs_cpu()
     snake_f32_run = phase_bigvgan_card_vs_cpu()
     train_parity = phase_train_card_vs_cpu()
+    snake_grad = phase_snake_grad()
+    vocoder_parity = phase_vocoder_card_vs_cpu()
     with torch_tf32_defaults():
         train = {attention: phase_train_main_path(card, attention)
                  for attention in ("auto", "flash_bf16")}
         with tempfile.TemporaryDirectory() as tmp:
             fit = phase_trainer_fit(card, tmp)
+        with tempfile.TemporaryDirectory() as tmp:
+            vocoder_train = phase_vocoder_train(card, tmp)
     hifigan = phase_main_path(card, "vctk_bench", {"ref_feats": random_ref_feats(16)},
                               {"ref_feats": random_ref_feats(3, seed=6)}, sampler_options=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1605,7 +2125,12 @@ def main():
         "replaces_also": "dex_tts_tpu/models/dit.py:367",
         "launches": paths["hifigan"]["flash_attention"],
         "launches_by_path": {**{k: v["flash_attention"] for k, v in paths.items()},
-                             **{k: v["flash_attention"] for k, v in train_launches.items()}},
+                             **{k: v["flash_attention"] for k, v in train_launches.items()},
+                             # Trainer.fit under flash_bf16 (steps, validation,
+                             # synthesis), and its periodic synthesis alone
+                             "trainer_fit": fit["fit_flash_launches"],
+                             "trainer_fit_synthesis": sum(c["flash_attention"]
+                                                          for c in fit["synthesis"])},
         "max_abs_err": bf16["max_abs_err"],
         "ms": bf16["ms"],
         "plain_ms": bf16["plain_ms"],
@@ -1680,7 +2205,12 @@ def main():
         "replaces": "dex_tts_tpu/ops/snake.py:309",
         "replaces_also": "dex_tts_tpu/ops/snake.py:152",
         "launches": paths["bigvgan"]["snake"],
-        "launches_by_path": {k: v["snake"] for k, v in paths.items()},
+        "launches_by_path": {**{k: v["snake"] for k, v in paths.items()},
+                             f"vocoder_train_bigvgan_{VOCODER_STEPS}_steps":
+                                 vocoder_train["bigvgan"]["launches"],
+                             f"vocoder_train_hifigan_{VOCODER_STEPS_HIFIGAN}_steps":
+                                 vocoder_train["hifigan"]["launches"]},
+        "launches_per_vocoder_train_step": vocoder_train["bigvgan"]["per_step"],
         "max_abs_err": sb["max_abs_err"],
         # times: one generator call at request 1's shapes, Σ over the six
         # stage shapes of (time at the shape × launches at the shape)
@@ -1696,6 +2226,10 @@ def main():
         "f32": {**{k: sf[k] for k in timing_keys}, "stages": sf["stages"],
                 "launches_card_vs_cpu": snake_f32_run["launches"],
                 "card_vs_cpu_wav_err": snake_f32_run["max_abs_err"]},
+        # under autograd (vocoder training): kernel forward, plain backward;
+        # gradients bit-equal to the plain version's, times per train step
+        "autograd": {str(dt).removeprefix("torch."): v for dt, v in snake_grad.items()},
+        "vocoder_step_card_vs_cpu": vocoder_parity,
         "card": card,
     }]
     log(f"main paths: HiFi-GAN request 1 RTF {hifigan['request_1']['rtf']:.6f}, BigVGAN request 1"
@@ -1703,6 +2237,12 @@ def main():
         + ", ".join(f"{k} {v['steps_per_s']:.4f}" for k, v in train.items())
         + f"; train card vs CPU worst error/bound {train_parity['worst_ratio']:.3e};"
         f" Trainer.fit {fit['wall_s']:.1f} s")
+    log(f"vocoder training (f32, 16 x 8192): BigVGAN {vocoder_train['bigvgan']['steps_per_s']:.4f}"
+        f" steps/s, peak {vocoder_train['bigvgan']['peak_gib']:.2f} GiB; HiFi-GAN"
+        f" {vocoder_train['hifigan']['steps_per_s']:.4f} steps/s, peak"
+        f" {vocoder_train['hifigan']['peak_gib']:.2f} GiB; snake per BigVGAN step (f32 kernel fwd +"
+        f" plain bwd) {snake_grad[torch.float32]['per_train_step']['fwd_bwd_ms']:.3f} ms; vocoder"
+        f" step card vs CPU worst error/bound {vocoder_parity['worst_ratio']:.3e} [{card}]")
     log(f"serving from a checkpoint: /tts x16 latency p50 {served['tts_p50_s']:.4f} s, p95"
         f" {served['tts_p95_s']:.4f} s; /tts_stream x4 time to first audio p50"
         f" {served['ttfa_p50_s']:.4f} s, p95 {served['ttfa_p95_s']:.4f} s; batch sizes"

@@ -3,7 +3,8 @@ dex_tts_tpu/audio/stft.py; `istft` and `griffin_lim` are not ported).
 
 Capability equivalent of the reference's conv-basis STFT
 (reference: DEX-TTS/audio/stft.py:16-178, audio/audio_processing.py:85-87),
-computed as framed ``torch.fft.rfft`` on the device of the signal. Numerics
+computed as framed ``torch.fft.rfft`` on the device of the signal (and, for
+the vocoder's MRD critic, the uncentered framed magnitude). Numerics
 match the JAX package: reflect padding of n_fft//2 on both sides, periodic
 Hann window of win_length zero-centered inside n_fft, magnitude spectrum,
 Slaney mel filterbank, log-compression ``log(clamp(x, 1e-5))``.
@@ -46,6 +47,16 @@ def stft_magnitude(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int
     """Magnitude STFT of (B, T) audio → (B, 1 + n_fft//2, n_frames)."""
     window = torch.from_numpy(_padded_window(n_fft, win_length)).to(y.device)
     frames = frame_signal(y, n_fft, hop_length) * window
+    return torch.fft.rfft(frames, n=n_fft, dim=-1).abs().transpose(1, 2)
+
+
+def stft_magnitude_uncentered(x: torch.Tensor, n_fft: int, hop_length: int,
+                              win_length: int) -> torch.Tensor:
+    """``torch.stft(center=False)`` magnitude of (B, T) audio that the caller
+    has padded → (B, 1 + n_fft//2, 1 + (T - n_fft)//hop_length): the MRD
+    critic's spectrum (dex_tts_tpu/models/vocoder/discriminators.py:107-115)."""
+    window = torch.from_numpy(_padded_window(n_fft, win_length)).to(x.device)
+    frames = x.unfold(1, n_fft, hop_length) * window
     return torch.fft.rfft(frames, n=n_fft, dim=-1).abs().transpose(1, 2)
 
 

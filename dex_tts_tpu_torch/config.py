@@ -69,7 +69,9 @@ class Preset:
     ``train``). ``ema`` is ``test.ema`` (synthesize from the EMA weights);
     ``vocoder_path`` is ``path.vocoder_path``, the directory (or file) of
     the vocoder's reference checkpoint, relative to the working
-    directory."""
+    directory. ``sample_rate``, ``hop_length``, ``n_fft``, ``win_length``,
+    ``n_mels``, ``f_min`` and ``f_max`` are the ``preprocess`` section's
+    mel parameters, which the vocoder trainer trains on."""
 
     model: TTSConfig
     vocoder: HiFiGANConfig | BigVGANConfig = field(default_factory=HiFiGANConfig)
@@ -82,6 +84,11 @@ class Preset:
     add_blank: bool = True
     sample_rate: int = 22050
     hop_length: int = 256
+    n_fft: int = 1024
+    win_length: int = 1024
+    n_mels: int = 80
+    f_min: float = 0.0
+    f_max: float = 8000.0
     ema: bool = False
     vocoder_path: str = "hifigan/weights"
 

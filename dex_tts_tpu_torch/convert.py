@@ -2,7 +2,8 @@
 of reference-format torch checkpoints.
 
 A copy of the mapping in dex_tts_tpu/export.py (``dex_tts_flax_to_torch``,
-``hifigan_flax_to_torch`` and ``bigvgan_flax_to_torch``), which writes
+``hifigan_flax_to_torch`` and ``bigvgan_flax_to_torch``; the vocoder
+critics' ``discriminators_flax_to_torch`` has no JAX counterpart), which writes
 the reference torch layout: the layout this port's modules use. Input:
 the JAX variables (``params``, ``batch_stats``, ``vq_stats``) as nested
 dicts of numpy arrays; output: a flat dict of numpy arrays that
@@ -398,6 +399,21 @@ def bigvgan_flax_to_torch(params: dict, cfg) -> dict:
                 for d in range(min(n_dil, 2)):
                     _conv1d(out, block[f"conv_{d}"], f"resblocks.{m}.convs.{d}")
                     snake(block[f"act_{d}"], f"resblocks.{m}.activations.{d}.act")
+    return out
+
+
+def discriminators_flax_to_torch(params: dict, cfg) -> dict:
+    """The vocoder critics' flax params {"mpd": ..., "mrd": ...} → the state
+    dict of ``nn.ModuleDict(mpd=MultiPeriodDiscriminator(cfg),
+    mrd=MultiResolutionDiscriminator(cfg))`` (`train.vocoder`'s
+    ``critics``): flax HWIO kernels as OIHW, names kept
+    (``mpd.p{period}.conv_{i}``, ``mrd.r{i}.conv_{i}``, ``conv_post``)."""
+    out: dict = {}
+    subs = [("mpd", f"p{p}") for p in cfg.mpd_periods]
+    subs += [("mrd", f"r{i}") for i in range(len(cfg.mrd_resolutions))]
+    for critic, sub in subs:  # every sub-critic: conv_0 … conv_4, conv_post
+        for name in [f"conv_{i}" for i in range(5)] + ["conv_post"]:
+            _conv2d(out, params[critic][sub][name], f"{critic}.{sub}.{name}")
     return out
 
 

@@ -6,8 +6,9 @@ Two differences from the JAX package, both on purpose:
   * a missing checkpoint raises (`FileNotFoundError`, naming what was
     tried) unless the caller passes ``random_init=True``; the JAX loader
     falls back to random weights with only a warning;
-  * the vocoder's orbax directories (``gen_best``/``gen_last``, the JAX
-    vocoder trainer's format) are not read: only reference torch files.
+  * where the JAX loader reads its vocoder trainer's orbax directories
+    (``gen_best``/``gen_last``), this one reads the port's vocoder
+    trainer's files ``gen_best.pth``/``gen_last.pth``.
 The objective evaluation (``run_objective_eval``) is not ported yet.
 """
 
@@ -67,11 +68,14 @@ def load_vocoder(preset: Preset, strict: bool = True, device=None, random_init: 
     reference: DEX-TTS/src/utils.py:251-281.
 
     The architecture is the preset's vocoder config with the keys of a
-    ``config.json`` beside the checkpoint. Candidates: for HiFi-GAN
-    ``generator_LJSpeech.pth.tar.zip``, ``generator_universal.pth.tar.zip``,
-    ``generator_universal.pth.tar`` and the path itself; for BigVGAN
-    ``g_05000000`` and the path. Weight norm is folded and the weights
-    load with ``load_state_dict(strict=strict)``. No file raises
+    ``config.json`` beside the checkpoint. Candidates: first the port's
+    vocoder trainer's ``gen_best.pth`` and ``gen_last.pth`` (as the JAX
+    loader tries its trainer's ``gen_best``/``gen_last`` first), then for
+    HiFi-GAN ``generator_LJSpeech.pth.tar.zip``,
+    ``generator_universal.pth.tar.zip``, ``generator_universal.pth.tar``
+    and the path itself; for BigVGAN ``g_05000000`` and the path. Weight
+    norm is folded and the weights load with
+    ``load_state_dict(strict=strict)``. No file raises
     `FileNotFoundError` unless ``random_init`` (smoke runs only).
 
     dtype: the JAX loader's "auto" picks bf16 for BigVGAN on the TPU and
@@ -83,11 +87,12 @@ def load_vocoder(preset: Preset, strict: bool = True, device=None, random_init: 
     arch = read_vocoder_arch(path, bigvgan)
     arch["dtype"] = "bfloat16" if bigvgan and device.type == "cuda" else "float32"
     vocoder = build_vocoder(dataclasses.replace(preset.vocoder, **arch), device=device)
+    names = ["gen_best.pth", "gen_last.pth"]  # train_vocoder's serving handoff
     if bigvgan:
-        names = ["g_05000000"]
+        names += ["g_05000000"]
     else:
-        names = ["generator_LJSpeech.pth.tar.zip", "generator_universal.pth.tar.zip",
-                 "generator_universal.pth.tar"]
+        names += ["generator_LJSpeech.pth.tar.zip", "generator_universal.pth.tar.zip",
+                  "generator_universal.pth.tar"]
     candidates = [os.path.join(path, n) for n in names] + [path] if path else []
     for cand in candidates:
         if os.path.isfile(cand):

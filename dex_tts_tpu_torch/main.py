@@ -2,25 +2,32 @@
 
     python -m dex_tts_tpu_torch.main train --preset esd \\
         --train_path filelists/ESD/train.txt --val_path filelists/ESD/valid.txt \\
-        --exp_dir checkpoints/esd [--seed 100] [--resume] [--device cuda]
+        --exp_dir checkpoints/esd [--seed 100] [--resume] [--init_from PATH] \\
+        [--n_timesteps 50] [--solver euler] [--device cuda]
 
 Filelist lines are ``mel_path|text|speaker(|emotion)`` with mel .npy files
 stored (T, n_mels) and lf0 files beside them under ``/lf0/`` (the layout of
 the JAX package's preprocessing). Checkpoints go to ``<exp_dir>/ckpt/``,
-the epoch log to ``<exp_dir>/log.txt``. The test action waits for the eval
-slice of the port.
+the epoch log to ``<exp_dir>/log.txt``. ``--init_from`` warm-starts from a
+reference-format torch checkpoint; every ``train.syn_every`` epochs the
+trainer synthesizes a few validation sentences into ``<exp_dir>/sample/``
+(``--n_timesteps`` and ``--solver``) with the preset's vocoder; SIGTERM
+or SIGINT saves ``last`` and ``preempt`` and returns. The test action
+waits for the eval slice of the port.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import torch
 
 from dex_tts_tpu_torch.config import Preset, build_model, load_preset
+from dex_tts_tpu_torch.convert import load_numpy_state, load_torch_trainer_checkpoint
 from dex_tts_tpu_torch.data import BucketBatcher, TextMelDataset
-from dex_tts_tpu_torch.train import Trainer, create_train_state
+from dex_tts_tpu_torch.train import PreemptionGuard, Trainer, TrainState, create_train_state
 
 
 def parse_args(argv=None):
@@ -32,8 +39,96 @@ def parse_args(argv=None):
     p.add_argument("--exp_dir", required=True)
     p.add_argument("--seed", type=int, default=100)
     p.add_argument("--resume", action="store_true")
+    p.add_argument("--init_from", default=None, metavar="PATH",
+                   help="warm-start weights and EMA from a reference-format torch "
+                        "checkpoint (.pth file or reference experiment dir); the optimizer "
+                        "starts fresh")
+    p.add_argument("--n_timesteps", type=int, default=50,
+                   help="sampler steps of the periodic synthesis")
+    p.add_argument("--solver", default="euler", choices=["euler", "heun", "dpmpp2m"],
+                   help="ODE solver of the periodic synthesis")
     p.add_argument("--device", default=None, help="default: cuda")
     return p.parse_args(argv)
+
+
+def warm_start_state(state: TrainState, path: str) -> TrainState:
+    """Load a reference-format torch checkpoint into a fresh train state, in
+    place: the weights and buffers (BatchNorm statistics, VQ codebook)
+    strictly, the EMA from the file's ``ema`` or else from its weights.
+    The optimizer starts fresh. reference checkpoint format:
+    DEX-TTS/src/train.py:112-122."""
+    from dex_tts_tpu_torch.eval.evaluation import _find_torch_tts_checkpoint
+
+    # "best-train" already falls back through val-best and last
+    resolved = _find_torch_tts_checkpoint(path, "best-train")
+    if not resolved:
+        raise FileNotFoundError(f"no reference checkpoint found at {path}")
+    state_dict, ema = load_torch_trainer_checkpoint(resolved)  # one disk read
+    load_numpy_state(state.model, state_dict)
+    ema = state_dict if ema is None else ema
+    with torch.no_grad():
+        for name, value in state.ema.items():
+            value.copy_(torch.from_numpy(ema[name]))
+    print(f"warm start from {resolved}")
+    return state
+
+
+def make_synthesis_callback(preset: Preset, model, exp_dir: str, n_timesteps: int = 50,
+                            solver: str = "euler", n_samples: int = 2, device=None):
+    """Periodic train-time synthesis (reference: DEX-TTS/src/train.py:176-178
+    runs a Tester every syn_every epochs) → ``syn_fn(state, epoch)``, which
+    writes ``<exp_dir>/sample/epoch{epoch}_{i}.wav`` for the first
+    ``n_samples`` validation sentences and prints each one's mel MAE
+    against its ground truth.
+
+    The dataset, the vocoder (`load_vocoder(preset)`) and the Synthesizer
+    are built at the first call and kept. The model synthesizes under
+    ``torch.no_grad()`` in eval mode and goes back to the mode it was in;
+    the noise comes from generators of its own, never from the train
+    state's, so training draws the same numbers with or without it. A
+    missing vocoder checkpoint or validation filelist (`FileNotFoundError`)
+    is logged and the call skipped; every other error raises."""
+    from dex_tts_tpu_torch.audio.wav import write_wav
+    from dex_tts_tpu_torch.eval.evaluation import load_vocoder
+    from dex_tts_tpu_torch.eval.metric import mel_mae
+    from dex_tts_tpu_torch.models.edm import SamplerConfig
+    from dex_tts_tpu_torch.pipeline import Synthesizer
+
+    cache: dict = {}
+    out_dir = os.path.join(exp_dir, "sample")
+
+    def syn_fn(state: TrainState, epoch: int) -> None:
+        was_training = model.training
+        try:
+            if "synth" not in cache:
+                try:
+                    ds = TextMelDataset(preset.val_path, cmu_path=preset.cmu_path,
+                                        add_blank=preset.add_blank,
+                                        load_style=preset.model.use_style)
+                    vocoder = load_vocoder(preset, device=device)
+                except FileNotFoundError as exc:
+                    print(f"  periodic synthesis skipped: {exc}", flush=True)
+                    return
+                cache["ds"] = ds
+                cache["synth"] = Synthesizer(
+                    model, vocoder, cmu_path=preset.cmu_path, add_blank=preset.add_blank,
+                    sampler=SamplerConfig(num_steps=n_timesteps, solver=solver), device=device)
+            ds, synth = cache["ds"], cache["synth"]
+            model.eval()
+            os.makedirs(out_dir, exist_ok=True)
+            for i in range(min(n_samples, len(ds))):
+                item = ds.eval_item(i)
+                kwargs = {"ref_feats": [(item["ref"], item["lf0"])]} if "ref" in item else {}
+                out = synth.tts([item["raw_text"]],
+                                generator=torch.Generator(synth.device).manual_seed(i),
+                                **kwargs)[0]
+                write_wav(os.path.join(out_dir, f"epoch{epoch}_{i}.wav"), out["wav"])
+                print(f"  syn sample {i}: mel_mae={mel_mae(item['y'], out['mel']):.4f}",
+                      flush=True)
+        finally:
+            model.train(was_training)
+
+    return syn_fn
 
 
 def make_loaders(preset: Preset, seed: int):
@@ -51,24 +146,39 @@ def make_loaders(preset: Preset, seed: int):
 
 
 def train(preset: Preset, exp_dir: str, seed: int = 100, resume: bool = False,
-          device=None) -> Trainer:
-    """Build the model (initialised from ``seed``), the train state and the
-    trainer, resume from ``last`` if asked and a checkpoint is there, and
-    run the preset's epochs. → the trainer."""
+          device=None, init_from: str | None = None, n_timesteps: int = 50,
+          solver: str = "euler") -> Trainer:
+    """Build the model (initialised from ``seed``, or warm-started from
+    ``init_from``), the train state and the trainer, resume from ``last``
+    if asked and a checkpoint is there, and run the preset's epochs with
+    periodic synthesis every ``train.syn_every`` epochs and a
+    `PreemptionGuard` installed (the previous signal handlers come back
+    when this returns). → the trainer."""
     tc = preset.train
     torch.manual_seed(seed)  # parameter init only; steps draw from the state's generator
     model = build_model(preset.model, device=device)
     state = create_train_state(model, seed=seed, lr=tc.lr, max_grad=tc.max_grad)
+    if init_from:
+        warm_start_state(state, init_from)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"model params: {n_params / 1e6:.2f} M | out_size: {preset.out_size()}")
-    trainer = Trainer(state, exp_dir, out_size=preset.out_size(), ema_decay=tc.ema_decay,
-                      mask_ratio=tc.mask_ratio, accum_steps=tc.accum_steps,
-                      save_epoch=tc.save_epoch, async_ckpt=tc.async_ckpt)
-    if resume and trainer.ckpt.exists("last"):
-        trainer.ckpt.restore(state, "last")
-        print(f"resumed from step {state.step}")
-    train_fn, valid_fn, _ = make_loaders(preset, seed)
-    trainer.fit(train_fn, valid_fn, epochs=tc.epoch)
+    syn_fn = make_synthesis_callback(preset, model, exp_dir, n_timesteps=n_timesteps,
+                                     solver=solver, device=device)
+    # SIGTERM (maintenance, reclaim) → checkpoint and a clean return
+    guard = PreemptionGuard()
+    try:
+        trainer = Trainer(state, exp_dir, out_size=preset.out_size(), ema_decay=tc.ema_decay,
+                          mask_ratio=tc.mask_ratio, accum_steps=tc.accum_steps,
+                          save_epoch=tc.save_epoch, async_ckpt=tc.async_ckpt,
+                          preemption=guard, syn_every=tc.syn_every, syn_fn=syn_fn)
+        if resume and trainer.ckpt.exists("last"):
+            trainer.ckpt.restore(state, "last")
+            print(f"resumed from step {state.step}")
+        train_fn, valid_fn, _ = make_loaders(preset, seed)
+        trainer.fit(train_fn, valid_fn, epochs=tc.epoch)
+    finally:
+        # only fit polls the guard: in-process callers keep a working Ctrl-C
+        guard.restore()
     return trainer
 
 
@@ -79,7 +189,8 @@ def main(argv=None):
     preset = dataclasses.replace(preset, **overrides)
     if preset.train is None:
         raise SystemExit(f"preset {args.preset!r} has no train block")
-    train(preset, args.exp_dir, seed=args.seed, resume=args.resume, device=args.device)
+    train(preset, args.exp_dir, seed=args.seed, resume=args.resume, device=args.device,
+          init_from=args.init_from, n_timesteps=args.n_timesteps, solver=args.solver)
 
 
 if __name__ == "__main__":

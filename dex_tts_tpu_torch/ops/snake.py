@@ -20,6 +20,10 @@ Numbers follow the TPU kernels: f32 arithmetic from the storage dtype,
 sin² is the degree-7 polynomial `_sin2_fast` where the JAX package's
 route would be the fold kernel with bf16 storage (impl "auto", "fold",
 "foldb"), exact `sin` everywhere else.
+
+Under autograd (vocoder training) a CUDA launch goes through
+`SnakeKernelFunction`: the kernel forward, and the backward of the plain
+version with the exact sine, as the JAX package's ``_snake_bwd``.
 """
 
 from __future__ import annotations
@@ -129,7 +133,10 @@ def snake_antialias_reference(x, alpha, inv_beta, kernel_size: int = 12,
     xf = x.transpose(1, 2).float()  # (B, C, T)
     al = alpha.to(x.dtype).float()[None, :, None]
     ib = inv_beta.to(x.dtype).float()[None, :, None]
-    xe = F.pad(xf, (q, q), mode="replicate")
+    # replicate padding as a concatenation: its backward is a plain sum,
+    # where F.pad's replicate backward accumulates with atomics on CUDA
+    # (not bit-reproducible)
+    xe = torch.cat([xf[..., :1].expand(-1, -1, q), xf, xf[..., -1:].expand(-1, -1, q)], dim=-1)
     p0 = depthwise(xe[..., : t + k // 2 - 1], f0)
     p1 = depthwise(xe[..., 1 : t + k // 2], f1)
     sin2 = _sin2_fast if fast_sin else (lambda v: torch.sin(v) ** 2)
@@ -183,6 +190,63 @@ def _check(x, k):
         raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's int sizes")
 
 
+def _launch(x, alpha, inv_beta, kernel_size: int, fast_sin: bool):
+    """One launch of the kernel on x's card: y (B, T, C) in x's dtype, with
+    the strides of a dense x. ``alpha``/``inv_beta``: (C,) contiguous in
+    x's dtype."""
+    _check(x, kernel_size)
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y
+    b, t, c = x.shape
+    with torch.cuda.device(x.device):  # the C launcher uses the current device
+        err = _kernel()(
+            x.data_ptr(), alpha.data_ptr(), inv_beta.data_ptr(), y.data_ptr(),
+            _DTYPE_CODE[x.dtype], kernel_size, int(bool(fast_sin)), b, t, c,
+            *x.stride(), *y.stride(), ctypes.addressof(_filter_array(kernel_size)),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err:
+        # 1 is also the launcher's refusal of a grid beyond its limits
+        raise RuntimeError(f"snake_antialias launch failed: CUDA error {err}")
+    snake_antialias.launches += 1
+    return y
+
+
+class SnakeKernelFunction(torch.autograd.Function):
+    """The kernel under autograd, as the JAX package's ``custom_vjp``
+    around its snake kernels (dex_tts_tpu/ops/snake.py:576-597): the
+    forward is one launch; the backward recomputes the plain version with
+    the exact sine (``fast_sin=False``, even after the polynomial forward)
+    on the saved inputs and differentiates it. The backward launches no
+    kernel."""
+
+    @staticmethod
+    def forward(ctx, x, alpha, inv_beta, kernel_size: int, fast_sin: bool):
+        ctx.save_for_backward(x, alpha, inv_beta)
+        ctx.kernel_size = kernel_size
+        return _launch(x, alpha, inv_beta, kernel_size, fast_sin)
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            inputs = [v.detach().requires_grad_(w) for v, w in zip(saved, wanted)]
+            y = snake_antialias_reference(*inputs, ctx.kernel_size, fast_sin=False)
+            grads = iter(torch.autograd.grad(y, [v for v, w in zip(inputs, wanted) if w], dy))
+        return (*(next(grads) if w else None for w in wanted), None, None)
+
+
+def per_channel(value, x) -> torch.Tensor:
+    """``value`` (a tensor or number broadcastable to (C,)) as a contiguous
+    (C,) tensor in x's dtype on x's device; differentiable, so a
+    parameter's graph (BigVGAN's ``exp`` of its logscale alpha) reaches
+    through it."""
+    return torch.as_tensor(value, device=x.device).to(x.dtype).broadcast_to(
+        (x.shape[-1],)).contiguous()
+
+
 def snake_antialias(
     x,
     alpha,
@@ -201,37 +265,23 @@ def snake_antialias(
     "auto", "fold" or "foldb"). CPU tensors take the plain version; CUDA
     tensors launch the kernel for every impl (on the current stream, no
     synchronisation; the output keeps the strides of a dense x) or
-    raise."""
+    raise. Where grad is enabled and an input requires it, the launch
+    goes through `SnakeKernelFunction` (backward: the plain version)."""
     if impl is None:
         impl = "pallas" if use_pallas else "polyphase"
     if impl not in IMPLS:
         raise ValueError(f"unknown snake impl {impl!r}; expected one of {IMPLS}")
     if fast_sin is None:
         fast_sin = x.dtype == torch.bfloat16 and impl in FAST_SIN_IMPLS
-    c = x.shape[-1]
-    alpha = torch.as_tensor(alpha, device=x.device).to(x.dtype).broadcast_to((c,)).contiguous()
-    inv_beta = torch.as_tensor(inv_beta, device=x.device).to(x.dtype).broadcast_to((c,)).contiguous()
+    alpha, inv_beta = per_channel(alpha, x), per_channel(inv_beta, x)
     if x.device.type == "cpu":
         return snake_antialias_reference(x, alpha, inv_beta, kernel_size, fast_sin)
     if x.device.type != "cuda":
         raise ValueError(f"no snake_antialias for device {x.device}")
-    _check(x, kernel_size)
-    y = torch.empty_like(x)
-    if y.numel() == 0:
-        return y
-    b, t, c = x.shape
-    with torch.cuda.device(x.device):  # the C launcher uses the current device
-        err = _kernel()(
-            x.data_ptr(), alpha.data_ptr(), inv_beta.data_ptr(), y.data_ptr(),
-            _DTYPE_CODE[x.dtype], kernel_size, int(bool(fast_sin)), b, t, c,
-            *x.stride(), *y.stride(), ctypes.addressof(_filter_array(kernel_size)),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err:
-        # 1 is also the launcher's refusal of a grid beyond its limits
-        raise RuntimeError(f"snake_antialias launch failed: CUDA error {err}")
-    snake_antialias.launches += 1
-    return y
+    if torch.is_grad_enabled() and (x.requires_grad or alpha.requires_grad
+                                    or inv_beta.requires_grad):
+        return SnakeKernelFunction.apply(x, alpha, inv_beta, kernel_size, bool(fast_sin))
+    return _launch(x, alpha, inv_beta, kernel_size, fast_sin)
 
 
 snake_antialias.launches = 0

@@ -7,8 +7,12 @@ checkpoints, a plaintext epoch log. A step issues its work on the model's
 device and returns its metrics as device tensors: nothing comes to the
 host until `metrics_to_host`, which also reads the MAS path guard's
 count of broken paths. The epoch loop keeps its metric sums on the device and
-reads them once per epoch. The mesh, the preemption hook and periodic
-synthesis of the JAX trainer are not ported yet.
+reads them once per epoch. A `PreemptionGuard` (``preemption``) is polled
+before each batch: when it has fired, `fit` saves ``last`` and ``preempt``,
+waits for the write and returns. ``syn_fn(state, epoch)`` runs every
+``syn_every`` epochs after the epoch's checkpoints (periodic synthesis,
+`main.make_synthesis_callback`). The JAX trainer's mesh is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from dex_tts_tpu_torch.ops.mas import MAS_ERRORS, raise_on_path_errors
 from dex_tts_tpu_torch.train.checkpoint import CheckpointManager
+from dex_tts_tpu_torch.train.preemption import PreemptionGuard
 from dex_tts_tpu_torch.train.state import TrainState, clip_by_global_norm_, ema_update_
 
 BATCH_KEYS = ("x", "x_lengths", "y", "y_lengths", "spk", "ref", "ref_lengths",
@@ -131,14 +136,21 @@ class Trainer:
 
     Checkpoints (reference: DEX-TTS/src/train.py:139-150): best-train,
     best-val, every ``save_epoch``, and last (with the optimizer and the
-    generator, for resume)."""
+    generator, for resume); ``last`` and ``preempt`` when ``preemption``
+    fires. ``syn_fn(state, epoch)`` every ``syn_every`` epochs (0: never;
+    reference: DEX-TTS/src/train.py:176-178)."""
 
     def __init__(self, state: TrainState, exp_dir: str, out_size: int | None = None,
                  ema_decay: float = 0.9999, mask_ratio: float = 0.0, accum_steps: int = 1,
-                 save_epoch: int = 200, async_ckpt: bool = False):
+                 save_epoch: int = 200, async_ckpt: bool = False,
+                 preemption: PreemptionGuard | None = None, syn_every: int = 0,
+                 syn_fn: Callable[[TrainState, int], None] | None = None):
         self.state = state
         self.exp_dir = exp_dir
         self.save_epoch = save_epoch
+        self.preemption = preemption
+        self.syn_every = syn_every
+        self.syn_fn = syn_fn
         os.makedirs(exp_dir, exist_ok=True)
         self.ckpt = CheckpointManager(os.path.join(exp_dir, "ckpt"), async_save=async_ckpt)
         self.train_step = make_train_step(out_size, ema_decay, mask_ratio, accum_steps)
@@ -157,6 +169,8 @@ class Trainer:
         device = next(self.state.model.parameters()).device
         generator = torch.Generator(device=device).manual_seed(int(self.state.step))
         for batch in loader:
+            if self.preemption is not None and self.preemption.triggered:
+                break
             batch = {k: v for k, v in batch.items() if not isinstance(v, str)}
             if train:
                 metrics = self.train_step(self.state, batch)
@@ -175,6 +189,13 @@ class Trainer:
         for epoch in range(start_epoch, epochs):
             t0 = time.time()
             train_metrics = self.run_epoch(train_loader_fn(), train=True)
+            if self.preemption is not None and self.preemption.triggered:
+                # grace-window checkpoint: a resume continues from here
+                self.ckpt.save_many(self.state, ["last", "preempt"])
+                self.ckpt.wait()  # durable before the grace window ends
+                self.log(f"preempted during epoch {epoch + 1}: saved last/preempt "
+                         "checkpoints, exiting")
+                return self.state
             line = f"epoch {epoch + 1} | " + " ".join(
                 f"{k}={v:.4f}" for k, v in sorted(train_metrics.items()))
             tags = []
@@ -196,5 +217,7 @@ class Trainer:
                 tags.append(f"epoch-{epoch + 1}")
             tags.append("last")
             self.ckpt.save_many(self.state, tags, scores={"epoch": epoch + 1, **scores})
+            if self.syn_every and self.syn_fn and (epoch + 1) % self.syn_every == 0:
+                self.syn_fn(self.state, epoch + 1)
         self.ckpt.wait()  # background writes must land before we return
         return self.state

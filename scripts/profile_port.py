@@ -3,6 +3,7 @@
 
     python3 scripts/profile_port.py            # synthesis
     python3 scripts/profile_port.py --train    # training
+    python3 scripts/profile_port.py --vocoder  # vocoder GAN training
 
 Builds both of chip_smoke's main paths with chip_smoke.build_main_path
 (the benchmark DeX at VCTK width, bf16, attention "auto", random weights,
@@ -21,7 +22,11 @@ With ``--train`` it profiles the training main path instead
 (chip_smoke.build_train_path: the ESD preset at full width on
 bench_train's batch, PyTorch's TF32 defaults), for attention "auto" and
 "flash_bf16": after two warm-up steps, two steps timed with the host clock
-and two traced.
+and two traced. With ``--vocoder`` it profiles the vocoder GAN train
+step the same way, as `python -m dex_tts_tpu_torch.train_vocoder` runs it
+at its defaults (f32 BigVGAN, then HiFi-GAN, with the MPD/MRD critics,
+16 × 8192 samples cut from chip_smoke's reference WAVs, PyTorch's TF32
+defaults).
 Prints one JSON line last. Needs a card.
 """
 
@@ -177,9 +182,44 @@ def profile_train(card: str, attention: str, steps: int = 2) -> dict:
     return report
 
 
+def profile_vocoder(card: str, kind: str, wav_dir: str, steps: int = 2) -> dict:
+    """`profile_train` for the vocoder GAN step (``kind``: "bigvgan" or
+    "hifigan") on one batch of the CLI's shape."""
+    from dex_tts_tpu_torch.audio.stft import MelSpectrogram
+    from dex_tts_tpu_torch.data.vocoder_dataset import WavSegmentDataset, wav_paths_from_source
+    from dex_tts_tpu_torch.models.vocoder import BigVGANConfig, HiFiGANConfig
+    from dex_tts_tpu_torch.ops.snake import snake_antialias
+    from dex_tts_tpu_torch.train import vocoder as tv
+
+    cfg = BigVGANConfig() if kind == "bigvgan" else HiFiGANConfig()
+    state = tv.create_vocoder_train_state(cfg, seed=100, device="cuda")
+    step = tv.make_vocoder_train_step(MelSpectrogram(), MelSpectrogram(fmax=11025.0))
+    batch = next(WavSegmentDataset(wav_paths_from_source(wav_dir), seed=100).batches(16, 1))
+    print(f"== vocoder train step, {kind}, 16 x 8192 [{card}]")
+    for _ in range(2):
+        step(state, batch)
+
+    def run():
+        for _ in range(steps):
+            metrics = step(state, batch)
+        return {k: v.item() for k, v in metrics.items()}
+
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    print(f"{steps} steps untraced: {wall * 1e3:.1f} ms, {steps / wall:.4f} steps/s")
+    snake_antialias.launches = 0
+    report = {"steps": steps, "untraced_ms": wall * 1e3, "steps_per_s": steps / wall,
+              **trace(run), "snake_launches": snake_antialias.launches}
+    del state
+    torch.cuda.empty_cache()
+    return report
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--train", action="store_true", help="profile the training main path")
+    p.add_argument("--vocoder", action="store_true", help="profile vocoder GAN training")
     args = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_port: CUDA is not available")
@@ -190,6 +230,12 @@ def main():
     report = {"card": card, "paths": {}}
     if args.train:
         report["paths"]["esd train"] = {a: profile_train(card, a) for a in ("auto", "flash_bf16")}
+    if args.vocoder:
+        with tempfile.TemporaryDirectory() as tmp:
+            chip_smoke.write_reference_wavs(tmp, 16)
+            report["paths"]["vocoder train"] = {k: profile_vocoder(card, k, tmp)
+                                                for k in ("bigvgan", "hifigan")}
+    if args.train or args.vocoder:
         report["nvidia_smi"] = nvidia_smi()
         print(json.dumps(report))
         return

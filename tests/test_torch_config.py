@@ -81,6 +81,10 @@ def test_preset_inference_and_train_fields_equal_yaml(name):
     assert cfg.vocoder == "hifigan" and preset.vocoder == HiFiGANConfig()
     assert (preset.sample_rate, preset.hop_length) == (cfg.preprocess.sample_rate,
                                                        cfg.preprocess.hop_length)
+    # the mel parameters the vocoder trainer reads (train_vocoder.py:103-118)
+    pre = cfg.preprocess
+    assert (preset.n_fft, preset.win_length, preset.n_mels, preset.f_min, preset.f_max) == (
+        pre.n_fft, pre.win_length, pre.n_mels, pre.f_min, pre.f_max)
     if name == "vctk":  # synthesis only: the port trains the ESD preset of this model
         assert preset.train is None
         return

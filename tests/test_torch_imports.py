@@ -43,7 +43,11 @@ def test_every_module_imports_without_jax():
             "dex_tts_tpu_torch.data.dataset", "dex_tts_tpu_torch.bench",
             "dex_tts_tpu_torch.bench_train", "dex_tts_tpu_torch.eval",
             "dex_tts_tpu_torch.eval.evaluation", "dex_tts_tpu_torch.serving",
-            "dex_tts_tpu_torch.synthesize", "dex_tts_tpu_torch.serve"} <= set(_modules())
+            "dex_tts_tpu_torch.synthesize", "dex_tts_tpu_torch.serve",
+            "dex_tts_tpu_torch.train.preemption", "dex_tts_tpu_torch.train.vocoder",
+            "dex_tts_tpu_torch.train_vocoder", "dex_tts_tpu_torch.eval.metric",
+            "dex_tts_tpu_torch.data.vocoder_dataset",
+            "dex_tts_tpu_torch.models.vocoder.discriminators"} <= set(_modules())
 
 
 def test_source_names_no_jax_or_jax_package():
@@ -111,3 +115,21 @@ def test_load_and_serve_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         synthesize.main(argv + ["--input_text", "Hi.", "--out_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.build_server(serve.parse_args(argv + ["--port", "0"]))
+
+
+def test_vocoder_trainer_raises_without_cuda(monkeypatch, tmp_path):
+    """`python -m dex_tts_tpu_torch.train_vocoder` and the state it builds
+    default to CUDA and raise without it, before any step."""
+    from chip_smoke import write_reference_wavs
+    from dex_tts_tpu_torch import train_vocoder
+    from dex_tts_tpu_torch.models.vocoder import HiFiGANConfig
+    from dex_tts_tpu_torch.train.vocoder import create_vocoder_train_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    write_reference_wavs(str(tmp_path), 1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_vocoder_train_state(HiFiGANConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_vocoder.main(["--data", str(tmp_path), "--steps", "1",
+                            "--ckpt_dir", str(tmp_path / "ckpt")])
+    assert not (tmp_path / "ckpt").exists()

@@ -7,6 +7,7 @@ package's own tests run them on the CPU."""
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -395,3 +396,97 @@ def test_schedule_emulation_matches_tpu_kernels_interpret(c, k):
         ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
         assert np.abs(got - want).max() <= 4 * ulp
 
+
+
+# --- gradients: the plain version under autograd, and the kernel's
+# autograd Function (kernel forward, plain backward) ---------------------
+
+
+def _grads(fn, x, al, ib, dy):
+    ins = [v.detach().clone().requires_grad_(True) for v in (x, al, ib)]
+    fn(*ins).backward(dy)
+    return [v.grad for v in ins]
+
+
+@pytest.mark.parametrize("b,t,c", [(2, 300, 8), (1, 5, 3)])
+def test_plain_gradients_match_jax_vjp_f32(b, t, c):
+    x, al, ib = _inputs(b, t, c, seed=8)
+    dy = np.random.default_rng(9).standard_normal((b, t, c)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jsk.snake_antialias_polyphase(*a, 12),
+                     jnp.asarray(x), jnp.asarray(al), jnp.asarray(ib))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dy))]
+    got = _grads(lambda *a: sk.snake_antialias_reference(*a, 12), torch.from_numpy(x),
+                 torch.from_numpy(al), torch.from_numpy(ib), torch.from_numpy(dy))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-5 * np.abs(w).max(), rtol=0)
+
+
+def test_plain_gradients_match_jax_vjp_bf16():
+    """bf16 inputs and output gradient: the plain version differentiates
+    in f32 and rounds each gradient once to bf16, so it lies within half
+    a bf16 ulp (of the largest) of JAX's f32 vjp on the same bf16 values;
+    JAX's vjp in bf16 arithmetic (`_snake_bwd` on bf16 residuals) within
+    4 ulps."""
+    b, t, c = 2, 300, 8
+    x, al, ib = _inputs(b, t, c, seed=10)
+    dy = np.random.default_rng(11).standard_normal((b, t, c)).astype(np.float32)
+    bf = [jnp.asarray(v, jnp.bfloat16) for v in (x, al, ib, dy)]
+    as_f32 = [np.asarray(v, np.float32) for v in bf]
+    f = lambda *a: jsk.snake_antialias_polyphase(*a, 12)  # noqa: E731
+    _, vjp = jax.vjp(f, *[jnp.asarray(v) for v in as_f32[:3]])
+    exact = [np.asarray(g) for g in vjp(jnp.asarray(as_f32[3]))]
+    _, vjp = jax.vjp(f, *bf[:3])
+    in_bf16 = [np.asarray(g, np.float32) for g in vjp(bf[3])]
+    got = _grads(lambda *a: sk.snake_antialias_reference(*a, 12),
+                 *[torch.from_numpy(v).to(torch.bfloat16) for v in as_f32])
+    for g, e, w in zip(got, exact, in_bf16):
+        assert g.dtype == torch.bfloat16
+        top = np.abs(e).max()
+        ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+        assert np.abs(g.float().numpy() - e).max() <= ulp / 2 + 1e-5 * top
+        assert np.abs(g.float().numpy() - w).max() <= 4 * ulp
+
+
+@pytest.mark.parametrize("dtype,fast", [(torch.float32, False), (torch.bfloat16, True)])
+def test_kernel_function_backward_is_the_plain_version(monkeypatch, dtype, fast):
+    """`SnakeKernelFunction` with the launch replaced by the plain version
+    (no card here): one launch per forward and none in the backward; the
+    gradients, back to BigVGAN's logscale parameters through ``exp`` and
+    `per_channel`, are bit-equal to autograd through the plain version with
+    the exact sine, as JAX's ``_snake_bwd`` differentiates the exact form
+    even after the polynomial forward."""
+    launched = []
+
+    def launch(x, alpha, inv_beta, k, fast_sin):
+        launched.append(fast_sin)
+        return sk.snake_antialias_reference(x, alpha, inv_beta, k, fast_sin)
+
+    monkeypatch.setattr(sk, "_launch", launch)
+    rng = np.random.default_rng(12)
+    x0 = torch.from_numpy(rng.standard_normal((2, 8, 40)).astype(np.float32)).to(dtype)
+    dy = torch.from_numpy(rng.standard_normal((2, 40, 8)).astype(np.float32)).to(dtype)
+
+    def run(via_function):
+        x = x0.clone().requires_grad_(True)
+        log_alpha = torch.nn.Parameter(torch.from_numpy(0.3 * rng.standard_normal(8)
+                                                        .astype(np.float32)))
+        log_beta = torch.nn.Parameter(log_alpha.detach() * 0.5)
+        xt = x.transpose(1, 2)  # BigVGAN's (B, T, C) view of (B, C, T)
+        al = sk.per_channel(torch.exp(log_alpha).to(dtype), xt)
+        ib = sk.per_channel((1.0 / (torch.exp(log_beta) + 1e-9)).to(dtype), xt)
+        if via_function:
+            y = sk.SnakeKernelFunction.apply(xt, al, ib, 12, fast)
+        else:
+            y = sk.snake_antialias_reference(xt, al, ib, 12, False)
+        y.backward(dy)
+        return [v.grad for v in (x, log_alpha, log_beta)]
+
+    rng = np.random.default_rng(13)
+    want = run(False)
+    rng = np.random.default_rng(13)
+    got = run(True)
+    assert launched == [fast]  # the forward only
+    for g, w in zip(got, want):
+        assert g is not None and torch.equal(g, w)
+    assert got[1].abs().max() > 0 and got[2].abs().max() > 0
