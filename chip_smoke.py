@@ -97,6 +97,16 @@ Vocoder training and the DeX trainer's hooks add:
      and non-zero in the first step, steps/s, peak memory), `gen_last.pth`
      through `load_vocoder`, a resume from ``last``, then `--vocoder
      hifigan` (no snake).
+Evaluation and preprocessing add:
+ 10. `phase_eval`: a seeded VCTK-layout corpus preprocessed by `python -m
+     dex_tts_tpu_torch.preprocess` with the mels on the card, held against
+     a CPU run (mels within 1e-5 of the largest value, linear domain;
+     lf0, WAVs and filelists equal); `python -m dex_tts_tpu_torch.main
+     test` on the held-out speaker's 8 items with the main path's DeX and
+     HiFi-GAN from disk and a seeded GE2E (K1 200 per item, finite mel
+     MAE, MCD > 0, cos in [-1, 1]) and on 2 items with the bf16 BigVGAN
+     (K2 109 per item); GE2E card vs CPU, cuDNN TF32 off and on; the
+     time per item by stage and per preprocessed utterance.
 The last two lines are the `kernels` JSON line and the device JSON line.
 Needs one card; exits non-zero without CUDA.
 """
@@ -160,32 +170,61 @@ REQUEST_2 = ["Good morning.", "See you at noon, then.", "Thank you very much."]
 REF_SR = 16000  # reference recordings at 16 kHz: the front end resamples to 22.05 kHz
 
 
-def write_reference_wavs(directory: str, n: int, seed: int = 7) -> list[str]:
-    """``n`` speech-like reference recordings as 16 kHz int16 WAV files:
-    2.6-3.0 s of eight harmonics (amplitude 1/h) whose F0 glides between
-    100 and 250 Hz, under a 4 Hz syllable envelope, with 0.3 s of
-    near-silence (-50 dB) on each side for the trim. → the file paths."""
+def speech_like(rng, sr: int) -> np.ndarray:
+    """One speech-like recording at ``sr`` from ``rng``: 2.6-3.0 s of eight
+    harmonics (amplitude 1/h) whose F0 glides between 100 and 250 Hz,
+    under a 4 Hz syllable envelope, with 0.3 s of near-silence (-50 dB) on
+    each side for the trim."""
+    tt = np.arange(int((2.6 + 0.4 * rng.random()) * sr)) / sr
+    f0 = 175.0 + 75.0 * np.sin(2 * np.pi * (0.3 + 0.4 * rng.random()) * tt
+                               + rng.uniform(0, 2 * np.pi))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    voice = sum(np.sin(h * phase) / h for h in range(1, 9))
+    env = 0.2 + 0.8 * (0.5 - 0.5 * np.cos(2 * np.pi * 4.0 * tt))
+    margin = int(0.3 * sr)
+    return np.concatenate([
+        1e-3 * rng.standard_normal(margin),
+        0.3 * voice * env + 3e-3 * rng.standard_normal(len(tt)),
+        1e-3 * rng.standard_normal(margin),
+    ])
+
+
+def write_int16_wav(path: str, wav: np.ndarray, sr: int) -> None:
     from scipy.io import wavfile
 
+    wavfile.write(path, sr, (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+
+
+def write_reference_wavs(directory: str, n: int, seed: int = 7) -> list[str]:
+    """``n`` speech-like reference recordings (`speech_like`) as 16 kHz
+    int16 WAV files. → the file paths."""
     rng = np.random.default_rng(seed)
     paths = []
     for i in range(n):
-        tt = np.arange(int((2.6 + 0.4 * rng.random()) * REF_SR)) / REF_SR
-        f0 = 175.0 + 75.0 * np.sin(2 * np.pi * (0.3 + 0.4 * rng.random()) * tt
-                                   + rng.uniform(0, 2 * np.pi))
-        phase = 2 * np.pi * np.cumsum(f0) / REF_SR
-        voice = sum(np.sin(h * phase) / h for h in range(1, 9))
-        env = 0.2 + 0.8 * (0.5 - 0.5 * np.cos(2 * np.pi * 4.0 * tt))
-        margin = int(0.3 * REF_SR)
-        wav = np.concatenate([
-            1e-3 * rng.standard_normal(margin),
-            0.3 * voice * env + 3e-3 * rng.standard_normal(len(tt)),
-            1e-3 * rng.standard_normal(margin),
-        ])
-        path = os.path.join(directory, f"ref_{i}.wav")
-        wavfile.write(path, REF_SR, (np.clip(wav, -1, 1) * 32767).astype(np.int16))
-        paths.append(path)
+        paths.append(os.path.join(directory, f"ref_{i}.wav"))
+        write_int16_wav(paths[-1], speech_like(rng, REF_SR), REF_SR)
     return paths
+
+
+VCTK_SR = 48000  # VCTK's recording rate
+
+
+def write_vctk_corpus(root: str, n_speakers: int = 2, n_utts: int = 8, seed: int = 12) -> list[str]:
+    """A corpus in VCTK's layout from a seed: ``wav48/pNNN/pNNN_00k.wav``
+    (`speech_like` at 48 kHz, int16) and ``txt/pNNN/pNNN_00k.txt``, the
+    transcripts taken from SENTENCES in turn. → the speaker names."""
+    rng = np.random.default_rng(seed)
+    speakers = [f"p{225 + s}" for s in range(n_speakers)]
+    for s, spk in enumerate(speakers):
+        for sub in ("wav48", "txt"):
+            os.makedirs(os.path.join(root, sub, spk), exist_ok=True)
+        for k in range(n_utts):
+            base = f"{spk}_{k + 1:03d}"
+            write_int16_wav(os.path.join(root, "wav48", spk, base + ".wav"),
+                            speech_like(rng, VCTK_SR), VCTK_SR)
+            with open(os.path.join(root, "txt", spk, base + ".txt"), "w") as f:
+                f.write(SENTENCES[(s * n_utts + k) % len(SENTENCES)] + "\n")
+    return speakers
 
 
 TRAIN_TEXTS = ["Printing, in the only sense with which we are at present concerned.",
@@ -2007,6 +2046,222 @@ def phase_serve(card: str, directory: str) -> dict:
     return result
 
 
+EVAL_PRESETS = ("vctk_bench_eval", "vctk_bench_bigvgan_eval")  # registered by phase_eval
+EVAL_ITEMS, EVAL_BIGVGAN_ITEMS = 8, 2
+EVAL_SEED = 13
+# card vs CPU preprocessing: the mels in the linear domain, relative to the
+# utterance's largest value (log(clamp(x, 1e-5)) magnifies cuFFT's and
+# pocketfft's differences near the clamp); lf0, WAVs, filelists equal
+EVAL_MEL_REL = 1e-5
+# card vs CPU GE2E embeddings (unit vectors), max |Δ|: cuDNN's LSTM in f32
+# (cuDNN TF32 off), and at PyTorch's default (cuDNN TF32 on)
+GE2E_ATOL = 1e-4
+GE2E_TF32_ATOL = 5e-2
+
+
+@contextlib.contextmanager
+def eval_stage_timers(totals: dict):
+    """Time the evaluation's stages per call, each between two
+    synchronisations: the synthesizer's `tts` ("tts"), its vocoder inside
+    it ("vocoder"), `mel_cepstral_distortion` ("mcd") and
+    `SpeakerScorer.cosine` ("speaker"), appending seconds to ``totals``."""
+    from dex_tts_tpu_torch.eval import evaluation
+    from dex_tts_tpu_torch.eval.metric import SpeakerScorer
+
+    def timed(fn, name):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                totals.setdefault(name, []).append(time.perf_counter() - t0)
+        return run
+
+    def load_synthesizer(*args, **kwargs):
+        synth = real_load(*args, **kwargs)
+        start = []
+
+        def before(*_):  # hooks return None: inputs and outputs unchanged
+            torch.cuda.synchronize()
+            start.append(time.perf_counter())
+
+        def after(*_):
+            torch.cuda.synchronize()
+            totals.setdefault("vocoder", []).append(time.perf_counter() - start.pop())
+
+        synth.vocoder.register_forward_pre_hook(before)
+        synth.vocoder.register_forward_hook(after)
+        synth.tts = timed(synth.tts, "tts")
+        return synth
+
+    real_load, real_mcd = evaluation.load_synthesizer, evaluation.mel_cepstral_distortion
+    real_cosine = SpeakerScorer.cosine
+    evaluation.load_synthesizer = load_synthesizer
+    evaluation.mel_cepstral_distortion = timed(real_mcd, "mcd")
+    SpeakerScorer.cosine = timed(real_cosine, "speaker")
+    try:
+        yield totals
+    finally:
+        evaluation.load_synthesizer, evaluation.mel_cepstral_distortion = real_load, real_mcd
+        SpeakerScorer.cosine = real_cosine
+
+
+def phase_eval(card: str, directory: str) -> dict:
+    """Preprocess a corpus and evaluate DeX-TTS on it, through the entry
+    points: a seeded VCTK-layout corpus (2 speakers x 8 utterances at 48
+    kHz, `write_vctk_corpus`) through `python -m
+    dex_tts_tpu_torch.preprocess` in-process with the mels on the card, and
+    again on the CPU: every mel within EVAL_MEL_REL of the CPU's, the lf0
+    files, WAVs, speaker map and filelists equal. Then `python -m
+    dex_tts_tpu_torch.main test` on the held-out speaker's 8 items
+    (`--n_random_unseen 1`) with the main path's seeded DeX and HiFi-GAN
+    from disk (`write_checkpoints`) and a GE2E state dict from
+    `init_params` (`--spk_encoder`): 8 WAVs and 8 ground-truth copies, a
+    finite mel MAE, MCD > 0, cos in [-1, 1], no WER/CER without
+    transformers, K1 200 launches per item; and with the bf16 BigVGAN
+    from a seeded ``gen_last.pth`` on 2 items (K1 400, K2 218). The GE2E
+    embeddings of the corpus on the card against the CPU's, cuDNN TF32
+    off and on. Counts are set to 0 just before each evaluation. TF32 off
+    (`main`). → launches, per-item stage times, walls, errors."""
+    import dataclasses
+    import importlib.util
+
+    from dex_tts_tpu_torch import main as port_main
+    from dex_tts_tpu_torch.audio.wav import read_wav
+    from dex_tts_tpu_torch.config import PRESETS, build_vocoder, load_preset
+    from dex_tts_tpu_torch.eval.speaker import BuiltinVoiceEncoder, init_params
+    from dex_tts_tpu_torch.ops.attention import flash_attention
+    from dex_tts_tpu_torch.ops.snake import snake_antialias
+    from dex_tts_tpu_torch.preprocess import __main__ as preprocess_cli
+
+    os.environ["HF_HUB_OFFLINE"] = "1"  # a pretrained ASR is never fetched
+    corpus = os.path.join(directory, "corpus")
+    write_vctk_corpus(corpus, n_speakers=2, n_utts=8, seed=EVAL_SEED)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        root = os.path.join(directory, dev)
+        argv = ["--dataset", "VCTK", "--corpus_path", corpus, "--raw_path", os.path.join(root, "raw"),
+                "--out_path", os.path.join(root, "pre"), "--filelist_dir", os.path.join(root, "fl"),
+                "--n_random_unseen", "1", "--device", dev]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rows, counts = preprocess_cli.main(argv)
+        torch.cuda.synchronize()
+        runs[dev] = dict(root=root, rows=rows, counts=counts, wall_s=time.perf_counter() - t0)
+    card_run, cpu_run = runs["cuda"], runs["cpu"]
+    n_utts = len(card_run["rows"])
+    assert n_utts == 16 and card_run["counts"] == cpu_run["counts"], (n_utts, card_run["counts"])
+    assert card_run["counts"]["test_unseen"] == EVAL_ITEMS, card_run["counts"]
+    mel_err = 0.0
+    for sub_root, _, names in os.walk(os.path.join(cpu_run["root"], "pre")):
+        for name in names:
+            rel = os.path.relpath(os.path.join(sub_root, name), cpu_run["root"])
+            a, b = (os.path.join(run["root"], rel) for run in (card_run, cpu_run))
+            if rel.startswith(os.path.join("pre", "mel")):
+                on_card, on_cpu = np.exp(np.load(a).astype(np.float64)), np.exp(
+                    np.load(b).astype(np.float64))
+                assert on_card.shape == on_cpu.shape and on_card.shape[1] == 80, rel
+                mel_err = max(mel_err, float(np.abs(on_card - on_cpu).max() / on_cpu.max()))
+            else:  # lf0, WAVs, speakers.txt
+                with open(a, "rb") as fa, open(b, "rb") as fb:
+                    assert fa.read() == fb.read(), rel
+    for name in os.listdir(os.path.join(cpu_run["root"], "fl")):
+        with open(os.path.join(card_run["root"], "fl", name)) as fa, \
+                open(os.path.join(cpu_run["root"], "fl", name)) as fb:
+            assert fa.read().replace(card_run["root"], "") == fb.read().replace(cpu_run["root"], "")
+    log(f"[eval] preprocessing {n_utts} utterances (VCTK layout, 48 kHz): card {card_run['wall_s']:.4f}"
+        f" s ({card_run['wall_s'] / n_utts:.4f} s per utterance), CPU {cpu_run['wall_s']:.4f} s;"
+        f" mels card vs CPU max |Δ| / max {mel_err:.3e} (bound {EVAL_MEL_REL:.0e}, linear"
+        f" domain); lf0, WAVs, filelists equal [{card}]")
+    assert mel_err <= EVAL_MEL_REL, mel_err
+
+    exp_dir, voc_dir = write_checkpoints(os.path.join(directory, "ckpt"))
+    bigvgan_preset = load_preset("vctk_bench_bigvgan")
+    bigvgan_dir = os.path.join(directory, "bigvgan")
+    os.makedirs(bigvgan_dir)
+    torch.manual_seed(EVAL_SEED)
+    torch.save(build_vocoder(bigvgan_preset.vocoder, device="cpu").state_dict(),
+               os.path.join(bigvgan_dir, "gen_last.pth"))
+    ge2e = os.path.join(directory, "ge2e.pt")
+    torch.save({"model_state": {k: torch.from_numpy(v) for k, v in init_params(EVAL_SEED).items()}},
+               ge2e)
+    filelist = os.path.join(card_run["root"], "fl", "test_unseen.txt")
+    PRESETS[EVAL_PRESETS[0]] = lambda: dataclasses.replace(load_preset("vctk_bench"),
+                                                           vocoder_path=voc_dir)
+    PRESETS[EVAL_PRESETS[1]] = lambda: dataclasses.replace(bigvgan_preset, vocoder_path=bigvgan_dir)
+    per_item_k1 = bigvgan_preset.model.dit.depth * bigvgan_preset.n_timesteps  # 4 x 50
+    has_asr = importlib.util.find_spec("transformers") is not None
+
+    def evaluate(preset_name, checkpoint, n_items, eval_dir):
+        argv = ["test", "--preset", preset_name, "--test_checkpoint", checkpoint, "--val_path",
+                filelist, "--sample_size", str(n_items), "--spk_encoder", ge2e, "--seed",
+                str(EVAL_SEED), "--n_timesteps", str(bigvgan_preset.n_timesteps), "--device", "cuda"]
+        stages = {}
+        torch.cuda.synchronize()
+        flash_attention.launches = snake_antialias.launches = 0
+        t0 = time.perf_counter()
+        with eval_stage_timers(stages), contextlib.redirect_stdout(io.StringIO()):
+            report = port_main.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": flash_attention.launches, "snake": snake_antialias.launches}
+        names = sorted(os.listdir(eval_dir))
+        assert names == sorted([f"{i:03d}_{k}.wav" for i in range(n_items) for k in ("syn", "ref")]
+                               + ["report.txt"]), names
+        for i in range(n_items):
+            wav, sr = read_wav(os.path.join(eval_dir, f"{i:03d}_syn.wav"))
+            assert sr == 22050 and len(wav) > 0 and np.isfinite(wav).all()
+        assert np.isfinite(report["mel_mae"][0]) and report["mcd"][0] > 0, report
+        assert -1.0 <= report["cos"][0] <= 1.0, report
+        assert has_asr or not {"wer", "cer"} & set(report), report
+        assert launches["flash_attention"] == per_item_k1 * n_items, launches
+        per_item = {k: float(np.mean(v)) for k, v in stages.items()}
+        per_item["synthesis"] = per_item["tts"] - per_item["vocoder"]
+        assert len(stages["tts"]) == len(stages["speaker"]) == n_items, stages
+        return dict(report={k: list(v) for k, v in report.items()}, launches=launches,
+                    wall_s=wall, per_item_s=per_item, n_items=n_items)
+
+    hifigan = evaluate(EVAL_PRESETS[0], exp_dir, EVAL_ITEMS, os.path.join(exp_dir, "eval"))
+    assert hifigan["launches"]["snake"] == 0, hifigan["launches"]
+    # BigVGAN from the checkpoint's .pth file: its eval directory goes beside it
+    bigvgan = evaluate(EVAL_PRESETS[1], os.path.join(exp_dir, "ckpt", "best-train.pth"),
+                       EVAL_BIGVGAN_ITEMS, os.path.join(exp_dir, "ckpt", "eval"))
+    assert bigvgan["launches"]["snake"] == SNAKE_LAUNCHES * EVAL_BIGVGAN_ITEMS, bigvgan["launches"]
+    for label, run in (("HiFi-GAN f32", hifigan), ("BigVGAN bf16", bigvgan)):
+        t = run["per_item_s"]
+        log(f"[eval {label}] main test on {run['n_items']} held-out items: wall"
+            f" {run['wall_s']:.4f} s; per item: synthesis {t['synthesis']:.4f} s, vocoder"
+            f" {t['vocoder']:.4f} s, MCD {t['mcd']:.4f} s, speaker {t['speaker']:.4f} s; report"
+            f" {json.dumps(run['report'])}; launches {run['launches']} [{card}]")
+
+    # GE2E on the card against the CPU, on the corpus's preprocessed WAVs
+    wavs = []
+    for sub_root, _, names in os.walk(os.path.join(card_run["root"], "pre", "wav")):
+        wavs += [read_wav(os.path.join(sub_root, n)) for n in sorted(names)]
+    on_cpu = BuiltinVoiceEncoder(ge2e, device="cpu")
+    want = np.stack([on_cpu.embed_utterance(w, source_sr=sr) for w, sr in wavs])
+    ge2e_err = {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            got = np.stack([BuiltinVoiceEncoder(ge2e, device="cuda").embed_utterance(w, source_sr=sr)
+                            for w, sr in wavs])
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        ge2e_err["cudnn_tf32" if tf32 else "f32"] = float(np.abs(got - want).max())
+    log(f"[eval] GE2E card vs CPU over {len(wavs)} utterances, max |Δ| of unit embeddings:"
+        f" cuDNN TF32 off {ge2e_err['f32']:.3e} (bound {GE2E_ATOL:.0e}), on (PyTorch's default)"
+        f" {ge2e_err['cudnn_tf32']:.3e} (bound {GE2E_TF32_ATOL:.0e}) [{card}]")
+    assert ge2e_err["f32"] <= GE2E_ATOL and ge2e_err["cudnn_tf32"] <= GE2E_TF32_ATOL, ge2e_err
+    return dict(preprocess={dev: dict(wall_s=r["wall_s"], per_utterance_s=r["wall_s"] / n_utts)
+                            for dev, r in runs.items()},
+                mel_rel_err=mel_err, ge2e_err=ge2e_err, hifigan=hifigan, bigvgan=bigvgan,
+                launches={"eval_hifigan": hifigan["launches"], "eval_bigvgan": bigvgan["launches"]})
+
+
 # the port bench's runs: (label, argv, K1 launches, K2 launches) per
 # text→WAV call: K1 4 per DiT evaluation (depth 4), K2 109 per BigVGAN call
 BENCH_RUNS = [
@@ -2105,11 +2360,13 @@ def main():
                                   {"ref_wavs": wavs[:3]})
     with tempfile.TemporaryDirectory() as tmp:
         served = phase_serve(card, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        evaluated = phase_eval(card, tmp)
     with torch_tf32_defaults():
         benches = phase_bench(card)
     paths = {"hifigan": hifigan["request_1"]["launches"], "bigvgan": bigvgan["request_1"]["launches"],
              **{f"hifigan_{k}": v["launches"] for k, v in hifigan["options"].items()},
-             **served["launches"],
+             **served["launches"], **evaluated["launches"],
              **{f"bench_{run[0]}": benches[run[0]]["launches"] for run in BENCH_RUNS}}
     train_launches = {**{f"train_{k}": v["launches"] for k, v in train.items()},
                       "bench_train": benches["train_default"]["launches"], **served["launches"]}
@@ -2247,6 +2504,11 @@ def main():
         f" {served['tts_p95_s']:.4f} s; /tts_stream x4 time to first audio p50"
         f" {served['ttfa_p50_s']:.4f} s, p95 {served['ttfa_p95_s']:.4f} s; batch sizes"
         f" {served['batch_sizes']} [{card}]")
+    log(f"eval (main test, 50 euler steps): HiFi-GAN {evaluated['hifigan']['per_item_s']['tts']:.4f}"
+        f" s per item ({EVAL_ITEMS} items), BigVGAN {evaluated['bigvgan']['per_item_s']['tts']:.4f}"
+        f" s ({EVAL_BIGVGAN_ITEMS}); preprocessing {evaluated['preprocess']['cuda']['per_utterance_s']:.4f}"
+        f" s per utterance; mels card vs CPU {evaluated['mel_rel_err']:.3e}; GE2E card vs CPU"
+        f" {evaluated['ge2e_err']} [{card}]")
     log("port bench: e2e RTF " + ", ".join(f"{k} {v['value']}" for k, v in benches.items()
                                           if k != "train_default")
         + f"; train {benches['train_default']['value']} steps/s, peak"

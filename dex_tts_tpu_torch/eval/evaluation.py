@@ -1,15 +1,26 @@
-"""Checkpoint loading for inference (port of the inference half of
+"""Checkpoint loading and objective evaluation (port of
 dex_tts_tpu/eval/evaluation.py: `load_vocoder`,
-`_find_torch_tts_checkpoint`, `load_synthesizer`).
+`_find_torch_tts_checkpoint`, `load_synthesizer`, `gt_wav_path`,
+`run_objective_eval`).
 
-Two differences from the JAX package, both on purpose:
+Capability equivalent of reference: DEX-TTS/src/evaluation.py:20-149
+(test() + Tester.synthesize): load the checkpoint (EMA per the preset),
+synthesize dataset sentences, vocode, write 22.05 kHz int16 wavs next to
+copies of the ground truth, and report mel-MAE and MCD always, plus
+CER/WER and speaker cosine when their optional backends are available.
+
+Differences from the JAX package, on purpose:
   * a missing checkpoint raises (`FileNotFoundError`, naming what was
     tried) unless the caller passes ``random_init=True``; the JAX loader
     falls back to random weights with only a warning;
   * where the JAX loader reads its vocoder trainer's orbax directories
     (``gen_best``/``gen_last``), this one reads the port's vocoder
-    trainer's files ``gen_best.pth``/``gen_last.pth``.
-The objective evaluation (``run_objective_eval``) is not ported yet.
+    trainer's files ``gen_best.pth``/``gen_last.pth``;
+  * the evaluation's noise is one ``torch.Generator`` seeded once and
+    drawn by every item in turn (JAX splits a PRNG key per item; the two
+    streams cannot be matched);
+  * a ground-truth copy that fails raises its OSError (the JAX package
+    skips it silently).
 """
 
 from __future__ import annotations
@@ -17,16 +28,28 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import warnings
 
 import torch
 
+from dex_tts_tpu_torch.audio.wav import read_wav, resample, write_wav
 from dex_tts_tpu_torch.config import Preset, build_model, build_vocoder
 from dex_tts_tpu_torch.convert import (
     fold_weight_norm,
     load_numpy_state,
     load_torch_checkpoint,
     load_torch_trainer_checkpoint,
+)
+from dex_tts_tpu_torch.data import TextMelDataset
+from dex_tts_tpu_torch.eval.metric import (
+    ASRScorer,
+    SpeakerScorer,
+    cer,
+    mean_and_stderr,
+    mel_cepstral_distortion,
+    mel_mae,
+    wer,
 )
 from dex_tts_tpu_torch.models.edm import SamplerConfig
 from dex_tts_tpu_torch.models.vocoder import BigVGANConfig
@@ -200,3 +223,128 @@ def load_synthesizer(preset: Preset, exp_dir: str, n_timesteps: int = 50,
                               dit_cache_interval=dit_cache_interval),
         device=device,
     )
+
+
+def gt_wav_path(filelist_path: str) -> str:
+    """Ground-truth wav path for a filelist entry.
+
+    Filelists store the mel path ``.../mel/{spk}/{spk}-mel-{base}.npy``; the
+    preprocessor writes the trimmed wav next to it at
+    ``.../wav/{spk}/{base}.wav`` (`preprocess/preprocessor.py`). Entries
+    that already point at a wav are returned unchanged
+    (reference: DEX-TTS/src/evaluation.py:60-67 copies GT wavs)."""
+    if filelist_path.endswith(".wav"):
+        return filelist_path
+    d, name = os.path.split(filelist_path.replace("/mel/", "/wav/"))
+    if "-mel-" in name and name.endswith(".npy"):
+        base = name.split("-mel-", 1)[1][: -len(".npy")]
+        return os.path.join(d, base + ".wav")
+    return ""
+
+
+def run_objective_eval(
+    preset: Preset,
+    exp_dir: str,
+    sample_size: int = 10,
+    n_timesteps: int = 50,
+    test_file: str | None = None,
+    seed: int = 0,
+    asr: ASRScorer | None = None,
+    spk_scorer: SpeakerScorer | None = None,
+    dit_cache_interval: int = 1,
+    solver: str = "euler",
+    spk_encoder: str | None = None,
+    tag: str = "best-train",
+    device=None,
+    random_init: bool = False,
+) -> dict:
+    """Synthesize the first ``sample_size`` items of ``preset.val_path``
+    (or lines of ``test_file``) with the checkpoint under ``exp_dir`` (an
+    experiment dir or a ``.pth`` file; `load_synthesizer`), on ``device``
+    (CUDA by default), and score them → {metric: (mean, stderr)}, the JAX
+    package's dict.
+
+    Writes ``<dir>/eval/{i:03d}_syn.wav``, a copy of each item's ground
+    truth as ``{i:03d}_ref.wav`` and ``report.txt`` (``name: mean ±
+    stderr``), where ``<dir>`` is ``exp_dir``, or the directory of the
+    ``.pth`` file. mel_mae and mcd hold the synthesized mel against the
+    item's; wer/cer need an available ASR, cos an available speaker scorer
+    and the ground-truth wav (resampled to 22.05 kHz). ``asr`` and
+    ``spk_scorer`` may be injected (tests); otherwise the default ASR and
+    a `SpeakerScorer` with ``spk_encoder`` (resemblyzer's pretrained.pt)
+    run on the same device. DeX items take their own mel and lf0 as the
+    reference style; the temperature is ``preset.temperature``; one
+    generator seeded with ``seed`` gives every item's noise in turn.
+
+    dit_cache_interval > 1 evaluates the approximate DiT-cache sampler,
+    solver="dpmpp2m" the second-order multistep solver: run either
+    against the exact default to measure its quality cost."""
+    device = resolve_device(device)
+    if test_file:
+        with open(test_file) as f:
+            sentences = [line.strip() for line in f if line.strip()]
+        items = [{"raw_text": s} for s in sentences[:sample_size]]
+    else:
+        if not (preset.val_path and os.path.isfile(preset.val_path)):
+            raise FileNotFoundError(
+                f"objective eval needs the val filelist ({preset.val_path}); "
+                "synthesize/serve run without a dataset, but `main test` scores "
+                "against real items — or pass --test_file for text-only synthesis"
+            )
+        ds = TextMelDataset(preset.val_path, cmu_path=preset.cmu_path,
+                            add_blank=preset.add_blank, load_style=preset.model.use_style)
+        items = [ds.eval_item(i) for i in range(min(sample_size, len(ds)))]
+    synth = load_synthesizer(preset, exp_dir, n_timesteps, tag=tag,
+                             dit_cache_interval=dit_cache_interval, solver=solver,
+                             device=device, random_init=random_init)
+    root = os.path.dirname(os.path.abspath(exp_dir)) if os.path.isfile(exp_dir) else exp_dir
+    out_dir = os.path.join(root, "eval")
+    os.makedirs(out_dir, exist_ok=True)
+
+    asr = asr if asr is not None else ASRScorer(device=synth.device)
+    if spk_scorer is None:
+        spk_scorer = SpeakerScorer(weights=spk_encoder, device=synth.device)
+    maes, mcds, wers, cers, coss = [], [], [], [], []
+    generator = torch.Generator(synth.device).manual_seed(seed)
+    for i, item in enumerate(items):
+        kwargs = {}
+        if "ref" in item:
+            # in-dataset reference features (ref == sty, same mel)
+            kwargs["ref_feats"] = [(item["ref"], item["lf0"])]
+        out = synth.tts([item["raw_text"]], generator=generator,
+                        temperature=preset.temperature, **kwargs)[0]
+        write_wav(os.path.join(out_dir, f"{i:03d}_syn.wav"), out["wav"])
+        if "y" in item:
+            maes.append(mel_mae(item["y"], out["mel"]))
+            mcds.append(mel_cepstral_distortion(item["y"], out["mel"]))
+        gt_path = gt_wav_path(item.get("filepath", ""))
+        if not (gt_path and os.path.isfile(gt_path)):
+            gt_path = ""
+        copy_src = gt_path or item.get("filepath", "")
+        if copy_src and os.path.isfile(copy_src):
+            shutil.copy(copy_src, os.path.join(
+                out_dir, f"{i:03d}_ref" + os.path.splitext(copy_src)[1]))
+        hyp = asr.transcribe(out["wav"]) if asr.available else None
+        if hyp is not None:
+            wers.append(wer(item["raw_text"], hyp))
+            cers.append(cer(item["raw_text"], hyp))
+        # speaker cosine similarity vs the ground-truth utterance
+        # (reference: DEX-TTS/src/metric.py:80-95, evaluation.py:76-85)
+        if spk_scorer.available and gt_path:
+            gt_wav, gt_sr = read_wav(gt_path)
+            cos = spk_scorer.cosine(out["wav"], resample(gt_wav, gt_sr, 22050),
+                                    sample_rate=22050)
+            if cos is not None:
+                coss.append(cos)
+
+    report = {}
+    for name, vals in [("mel_mae", maes), ("mcd", mcds), ("wer", wers),
+                       ("cer", cers), ("cos", coss)]:
+        if vals:
+            report[name] = mean_and_stderr(vals)
+    lines = [f"{name}: {mean:.4f} ± {se:.4f}" for name, (mean, se) in report.items()]
+    text = "\n".join(lines) if lines else "no metrics available"
+    print(text)
+    with open(os.path.join(out_dir, "report.txt"), "w") as f:
+        f.write(text + "\n")
+    return report

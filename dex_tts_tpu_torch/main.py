@@ -1,9 +1,14 @@
-"""Train CLI (port of main.py's train action; reference: DEX-TTS/main.py:21-67).
+"""Train / evaluate CLI (port of main.py; reference: DEX-TTS/main.py:21-67).
 
     python -m dex_tts_tpu_torch.main train --preset esd \\
         --train_path filelists/ESD/train.txt --val_path filelists/ESD/valid.txt \\
         --exp_dir checkpoints/esd [--seed 100] [--resume] [--init_from PATH] \\
         [--n_timesteps 50] [--solver euler] [--device cuda]
+    python -m dex_tts_tpu_torch.main test --preset esd \\
+        --test_checkpoint <exp_dir or .pth> [--val_path filelists/ESD/test.txt] \\
+        [--tag best-train] [--sample_size 10] [--test_file sentences.txt] \\
+        [--n_timesteps 50] [--solver euler] [--dit_cache_interval 1] \\
+        [--spk_encoder pretrained.pt] [--seed 100] [--random_init] [--device cuda]
 
 Filelist lines are ``mel_path|text|speaker(|emotion)`` with mel .npy files
 stored (T, n_mels) and lf0 files beside them under ``/lf0/`` (the layout of
@@ -12,8 +17,15 @@ the epoch log to ``<exp_dir>/log.txt``. ``--init_from`` warm-starts from a
 reference-format torch checkpoint; every ``train.syn_every`` epochs the
 trainer synthesizes a few validation sentences into ``<exp_dir>/sample/``
 (``--n_timesteps`` and ``--solver``) with the preset's vocoder; SIGTERM
-or SIGINT saves ``last`` and ``preempt`` and returns. The test action
-waits for the eval slice of the port.
+or SIGINT saves ``last`` and ``preempt`` and returns.
+
+The test action (`eval.evaluation.run_objective_eval`) synthesizes the
+first ``--sample_size`` items of ``--val_path`` (or the preset's) with the
+checkpoint of ``--tag`` (a missing one raises unless ``--random_init``),
+writes ``<exp_dir>/eval/`` and prints mel MAE and MCD, plus WER/CER and
+speaker cosine where their backends are available (``--spk_encoder``:
+resemblyzer's pretrained.pt for the built-in GE2E encoder). ``--seed``
+seeds the evaluation's noise.
 """
 
 from __future__ import annotations
@@ -32,11 +44,11 @@ from dex_tts_tpu_torch.train import PreemptionGuard, Trainer, TrainState, create
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("action", choices=["train"])
+    p.add_argument("action", choices=["train", "test"])
     p.add_argument("--preset", default="esd")
     p.add_argument("--train_path", default=None)
     p.add_argument("--val_path", default=None)
-    p.add_argument("--exp_dir", required=True)
+    p.add_argument("--exp_dir", default=None, help="train: the experiment directory (required)")
     p.add_argument("--seed", type=int, default=100)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--init_from", default=None, metavar="PATH",
@@ -44,11 +56,28 @@ def parse_args(argv=None):
                         "checkpoint (.pth file or reference experiment dir); the optimizer "
                         "starts fresh")
     p.add_argument("--n_timesteps", type=int, default=50,
-                   help="sampler steps of the periodic synthesis")
+                   help="sampler steps of the periodic synthesis and of the test action")
     p.add_argument("--solver", default="euler", choices=["euler", "heun", "dpmpp2m"],
-                   help="ODE solver of the periodic synthesis")
+                   help="ODE solver of the periodic synthesis and of the test action")
     p.add_argument("--device", default=None, help="default: cuda")
-    return p.parse_args(argv)
+    p.add_argument("--test_checkpoint", default=None, metavar="PATH",
+                   help="test: the experiment directory or .pth file to evaluate (required)")
+    p.add_argument("--tag", default="best-train", help="test: the checkpoint tag")
+    p.add_argument("--sample_size", type=int, default=10, help="test: items to evaluate")
+    p.add_argument("--test_file", default=None,
+                   help="test: synthesize these lines (text only) instead of the val items")
+    p.add_argument("--dit_cache_interval", type=int, default=1,
+                   help="test: evaluate the approximate DiT-cache sampler (1 = exact)")
+    p.add_argument("--spk_encoder", default=None, metavar="PT",
+                   help="test: resemblyzer's pretrained.pt for the built-in GE2E speaker "
+                        "encoder (the speaker-cosine metric)")
+    p.add_argument("--random_init", action="store_true",
+                   help="test: random weights where a checkpoint is missing (smoke runs only)")
+    args = p.parse_args(argv)
+    needed = {"train": "exp_dir", "test": "test_checkpoint"}[args.action]
+    if getattr(args, needed) is None:
+        p.error(f"{args.action} needs --{needed}")
+    return args
 
 
 def warm_start_state(state: TrainState, path: str) -> TrainState:
@@ -182,11 +211,26 @@ def train(preset: Preset, exp_dir: str, seed: int = 100, resume: bool = False,
     return trainer
 
 
+def test(args, preset: Preset) -> dict:
+    """The test action → `run_objective_eval`'s report."""
+    from dex_tts_tpu_torch.eval.evaluation import run_objective_eval
+
+    return run_objective_eval(
+        preset, args.test_checkpoint, sample_size=args.sample_size,
+        n_timesteps=args.n_timesteps, test_file=args.test_file, seed=args.seed,
+        dit_cache_interval=args.dit_cache_interval, solver=args.solver,
+        spk_encoder=args.spk_encoder, tag=args.tag, device=args.device,
+        random_init=args.random_init,
+    )
+
+
 def main(argv=None):
     args = parse_args(argv)
     preset = load_preset(args.preset)
     overrides = {k: getattr(args, k) for k in ("train_path", "val_path") if getattr(args, k)}
     preset = dataclasses.replace(preset, **overrides)
+    if args.action == "test":
+        return test(args, preset)
     if preset.train is None:
         raise SystemExit(f"preset {args.preset!r} has no train block")
     train(preset, args.exp_dir, seed=args.seed, resume=args.resume, device=args.device,

@@ -184,7 +184,7 @@ def warn_dropped(dropped: set[str]) -> None:
     if any(f == "CJK" for f in new):
         hint = (
             " For Mandarin text use the pinyin frontend "
-            "(dex_tts_tpu.preprocess.text_frontend, not yet ported) as the "
+            "(dex_tts_tpu_torch.preprocess.text_frontend) as the "
             "reference's "
             "preprocess pipeline does — the English cleaner cannot "
             "romanize hanzi."

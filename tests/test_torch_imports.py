@@ -47,7 +47,10 @@ def test_every_module_imports_without_jax():
             "dex_tts_tpu_torch.train.preemption", "dex_tts_tpu_torch.train.vocoder",
             "dex_tts_tpu_torch.train_vocoder", "dex_tts_tpu_torch.eval.metric",
             "dex_tts_tpu_torch.data.vocoder_dataset",
-            "dex_tts_tpu_torch.models.vocoder.discriminators"} <= set(_modules())
+            "dex_tts_tpu_torch.models.vocoder.discriminators", "dex_tts_tpu_torch.eval.speaker",
+            "dex_tts_tpu_torch.preprocess", "dex_tts_tpu_torch.preprocess.preprocessor",
+            "dex_tts_tpu_torch.preprocess.filelists", "dex_tts_tpu_torch.preprocess.text_frontend",
+            "dex_tts_tpu_torch.preprocess.__main__"} <= set(_modules())
 
 
 def test_source_names_no_jax_or_jax_package():
@@ -133,3 +136,34 @@ def test_vocoder_trainer_raises_without_cuda(monkeypatch, tmp_path):
         train_vocoder.main(["--data", str(tmp_path), "--steps", "1",
                             "--ckpt_dir", str(tmp_path / "ckpt")])
     assert not (tmp_path / "ckpt").exists()
+
+
+def test_eval_and_preprocess_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """`python -m dex_tts_tpu_torch.main test`, `python -m
+    dex_tts_tpu_torch.preprocess` and the scorers they build default to
+    CUDA and raise without it, before reading a filelist or writing a
+    file."""
+    from chip_smoke import write_vctk_corpus
+    from dex_tts_tpu_torch import main as port_main
+    from dex_tts_tpu_torch.eval import ASRScorer, SpeakerScorer, run_objective_eval
+    from dex_tts_tpu_torch.eval.speaker import BuiltinVoiceEncoder
+    from dex_tts_tpu_torch.preprocess import PreprocessConfig, Preprocessor
+    from dex_tts_tpu_torch.preprocess import __main__ as preprocess_cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_main.main(["test", "--preset", "vctk", "--test_checkpoint", str(tmp_path / "exp"),
+                        "--val_path", str(tmp_path / "missing.txt")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_objective_eval(None, str(tmp_path / "exp"))
+    write_vctk_corpus(str(tmp_path / "corpus"), n_speakers=1, n_utts=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        preprocess_cli.main(["--dataset", "VCTK", "--corpus_path", str(tmp_path / "corpus"),
+                             "--raw_path", str(tmp_path / "raw"),
+                             "--out_path", str(tmp_path / "pre")])
+    assert sorted(os.listdir(tmp_path)) == ["corpus"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Preprocessor(PreprocessConfig())
+    for make in (ASRScorer, BuiltinVoiceEncoder, lambda: SpeakerScorer(backend="random-init")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
