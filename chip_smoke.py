@@ -107,6 +107,17 @@ Evaluation and preprocessing add:
      MAE, MCD > 0, cos in [-1, 1]) and on 2 items with the bf16 BigVGAN
      (K2 109 per item); GE2E card vs CPU, cuDNN TF32 off and on; the
      time per item by stage and per preprocessed utterance.
+Data and tensor parallelism add:
+ 11. `phase_parallel`: two gloo ranks sharing the card (NCCL refuses two
+     ranks on one device) run the ESD train step at full width, global
+     batch 32, against the one-process step on the same rows, under
+     attention "auto" and "flash_bf16", with a plain-DDP control outside
+     the bound and K1/K4 launches per rank; one step over nccl at world
+     size 1 equal to the plain step bit for bit; the BigVGAN GAN step
+     over dp2 against one process (K3 per rank); `Synthesizer.tts` over
+     dp2 and dp1×tp2 against one process (K1 per rank); and `main train`
+     on two ranks with a resume, its checkpoint loaded by a one-process
+     `load_synthesizer`.
 The last two lines are the `kernels` JSON line and the device JSON line.
 Needs one card; exits non-zero without CUDA.
 """
@@ -2264,6 +2275,500 @@ def phase_eval(card: str, directory: str) -> dict:
 
 # the port bench's runs: (label, argv, K1 launches, K2 launches) per
 # text→WAV call: K1 4 per DiT evaluation (depth 4), K2 109 per BigVGAN call
+PARALLEL_BATCH = 32  # the ESD global batch: 16 rows per rank
+PARALLEL_TIMED_STEPS = 3
+# DP step against the one-process step on the same card and rows, TF32
+# off: the same kernels on half the rows, so only f32 summation order
+# (and, under flash_bf16, bf16 roundings it flips) separates them
+PARALLEL_BOUNDS = {"auto": dict(loss_rtol=1e-4, grad_rel=1e-3),
+                   "flash_bf16": dict(loss_rtol=1e-3, grad_rel=1e-2)}
+PARALLEL_BUFFER_RTOL = 1e-4  # BatchNorm running statistics, VQ codebook
+PARALLEL_VOCODER_ROWS = 8  # per rank: 2 × 8 × 8192 against 16 × 8192
+PARALLEL_MEL_REL = 2e-2  # sharded synthesis (bf16 DiT, 50 steps) vs one process, × max|mel|
+PARALLEL_CLI_PRESET = "esd_parallel_smoke"
+
+
+def _grad_ratio(got: dict, want: dict, rel: float) -> tuple[float, str]:
+    """max over tensors of |g − g_want| / (rel × (max|g_want| + 1e-3 × top))."""
+    top = max(g.abs().max().item() for g in want.values())
+    assert top > 0 and sorted(got) == sorted(want)
+    return max(((got[n] - g).abs().max().item() / (rel * (g.abs().max().item() + 1e-3 * top)), n)
+               for n, g in want.items())
+
+
+def _buffer_ratio(got: dict, want: dict) -> float:
+    names = [n for n in want if "running" in n or ".vq." in n]
+    assert len(names) >= 9, names
+    return max((got[n] - want[n]).abs().max().item()
+               / (PARALLEL_BUFFER_RTOL * want[n].abs().max().item() + 1e-12) for n in names)
+
+
+def _parallel_train(rank: int, data: dict) -> dict:
+    """(a) on one of two gloo ranks that share the card: for each attention
+    setting, rank 0's one-process step on the global batch, then the DP
+    step (every rank), then the plain-DDP control, then timed DP steps."""
+    import dataclasses
+    from unittest import mock
+
+    from dex_tts_tpu_torch import main as port_main
+    from dex_tts_tpu_torch import parallel
+    from dex_tts_tpu_torch.config import load_preset
+    from dex_tts_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+    from dex_tts_tpu_torch.ops.mas import maximum_path
+    from dex_tts_tpu_torch.parallel import collectives
+    from dex_tts_tpu_torch.train.trainer import metrics_to_host
+
+    mesh = parallel.make_mesh()
+    preset = dataclasses.replace(load_preset("esd"), train_path=data["train"],
+                                 val_path=data["valid"])
+    preset = dataclasses.replace(preset, train=dataclasses.replace(preset.train,
+                                                                   batch_size=PARALLEL_BATCH))
+    global_batch = next(iter(port_main.make_loaders(preset, seed=1)[0]()))
+    local_batch = next(iter(port_main.make_loaders(preset, 1, mesh.world_size, mesh.rank)[0]()))
+
+    def snapshot(state):
+        grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+        bufs = {n: b.detach().clone() for n, b in state.model.named_buffers()}
+        return grads, bufs
+
+    def fresh(attention):
+        _, mode, state, step, _ = build_train_path(attention)
+        state.max_grad = float("inf")  # compare the gradients before any clip
+        return mode, state, step
+
+    out = {}
+    for attention in ("auto", "flash_bf16"):
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        bounds = PARALLEL_BOUNDS[attention]
+        report = {}
+        if mesh.rank == 0:
+            _, state, step = fresh(attention)
+            want = metrics_to_host(step(state, global_batch))
+            want_grads, want_bufs = snapshot(state)
+            del state
+        dist_barrier(mesh)
+        mode, state, step = fresh(attention)
+        pstep = parallel.make_parallel_train_step(step, mesh)
+        got = metrics_to_host(pstep(state, local_batch))
+        got_grads, got_bufs = snapshot(state)
+        # plain DDP: each rank's own denominators and BatchNorm statistics
+        # (and codebook counts), the gradients averaged
+        _, ddp_state, ddp_step = fresh(attention)
+        with mock.patch.object(collectives, "global_sum", lambda x: x), \
+                mock.patch.object(collectives, "dp_world", lambda: 1):
+            ddp = metrics_to_host(parallel.make_parallel_train_step(ddp_step, mesh)(
+                ddp_state, local_batch))
+        ddp_grads = {n: p.grad.detach() / mesh.dp_size
+                     for n, p in ddp_state.model.named_parameters()}
+        ddp["total_loss"] /= mesh.dp_size  # the metrics were summed: DDP reports the mean
+        del ddp_state
+        if mesh.rank == 0:
+            loss_ratio = max(abs(got[k] - v) / (bounds["loss_rtol"] * abs(v))
+                             for k, v in want.items() if k != "grad_norm")
+            report.update(
+                want_loss=want["total_loss"], got_loss=got["total_loss"],
+                ddp_loss=ddp["total_loss"], loss_ratio=loss_ratio,
+                grad_ratio=_grad_ratio(got_grads, want_grads, bounds["grad_rel"]),
+                buffer_ratio=_buffer_ratio(got_bufs, want_bufs),
+                ddp_grad_ratio=_grad_ratio(ddp_grads, want_grads, bounds["grad_rel"]),
+                ddp_loss_ratio=abs(ddp["total_loss"] - want["total_loss"])
+                / (bounds["loss_rtol"] * abs(want["total_loss"])))
+        del got_grads, ddp_grads
+        # timed DP steps at PyTorch's TF32 defaults, two ranks on one card
+        with torch_tf32_defaults():
+            state.max_grad = load_preset("esd").train.max_grad
+            metrics_to_host(pstep(state, local_batch))  # warm-up at these flags
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counters = (flash_attention, flash_attention_bwd, maximum_path)
+            for fn in counters:
+                fn.launches = 0
+            dist_barrier(mesh)
+            t0 = time.perf_counter()
+            for _ in range(PARALLEL_TIMED_STEPS):
+                metrics = pstep(state, local_batch)
+            last = metrics_to_host(metrics)
+            dist_barrier(mesh)
+            wall = time.perf_counter() - t0
+        report.update(mode=mode, depth=state.model.cfg.dit.depth,
+                      steps_per_s=PARALLEL_TIMED_STEPS / wall, last=last,
+                      peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                      launches={fn.__name__: fn.launches for fn in counters})
+        out[attention] = report
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_barrier(mesh) -> None:
+    import torch.distributed as dist
+
+    dist.barrier(group=mesh.cpu_group)
+
+
+def _parallel_nccl(directory: str, data: dict) -> dict:
+    """(b) world size 1 over nccl, in this process (a spawned rank would
+    cost a process start and a CUDA context): one DP step against the
+    plain step from the same state, deterministic algorithms on both
+    (cuBLAS on one stream is deterministic already), the group destroyed
+    and the algorithm flags put back after."""
+    import dataclasses
+
+    from dex_tts_tpu_torch import main as port_main
+    from dex_tts_tpu_torch import parallel
+    from dex_tts_tpu_torch.config import load_preset
+
+    import torch.distributed as dist
+
+    preset = dataclasses.replace(load_preset("esd"), train_path=data["train"],
+                                 val_path=data["valid"])
+    preset = dataclasses.replace(preset, train=dataclasses.replace(preset.train, batch_size=8))
+    batch = next(iter(port_main.make_loaders(preset, seed=1)[0]()))
+    benchmark = torch.backends.cudnn.benchmark
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.benchmark = False
+    parallel.initialize("file://" + os.path.join(directory, "nccl_store"), world_size=1, rank=0,
+                        backend="nccl", device="cuda:0")
+    try:
+        backend, world = dist.get_backend(), dist.get_world_size()
+        runs = []
+        for parallel_step in (False, True):
+            _, _, state, step, _ = build_train_path("auto")
+            if parallel_step:
+                step = parallel.make_parallel_train_step(step, parallel.make_mesh())
+            metrics = {k: v.item() for k, v in step(state, batch).items()}
+            runs.append((metrics,
+                         {n: p.detach().cpu() for n, p in state.model.state_dict().items()},
+                         {n: p.detach().cpu() for n, p in state.ema.items()}))
+            del state
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.benchmark = benchmark
+    (m0, p0, e0), (m1, p1, e1) = runs
+    return dict(backend=backend, world=world, plain=m0, dp=m1,
+                metrics_equal=m0 == m1,
+                params_equal=all(torch.equal(p0[n], p1[n]) for n in p0),
+                ema_equal=all(torch.equal(e0[n], e1[n]) for n in e0))
+
+
+def _parallel_vocoder(rank: int, data: dict) -> dict:
+    """(c) the vocoder GAN step: rank 0's one-process step on the global
+    16 × 8192 crop batch, then the DP step on each rank's 8 rows of the
+    same seeded crops."""
+    from dex_tts_tpu_torch import parallel
+    from dex_tts_tpu_torch.audio.stft import MelSpectrogram
+    from dex_tts_tpu_torch.data.vocoder_dataset import WavSegmentDataset
+    from dex_tts_tpu_torch.models.vocoder import BigVGANConfig
+    from dex_tts_tpu_torch.ops.snake import snake_antialias
+    from dex_tts_tpu_torch.train import vocoder as tv
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    mesh = parallel.make_mesh()
+    rows = PARALLEL_VOCODER_ROWS * mesh.dp_size
+    batch = next(WavSegmentDataset(data["wavs"], segment=8192, seed=100).batches(rows, 1))
+    mel, mel_l1 = MelSpectrogram(), MelSpectrogram(fmax=11025.0)
+
+    def run(batch, sharded: bool):
+        state = tv.create_vocoder_train_state(BigVGANConfig(), seed=100, device="cuda")
+        step = tv.make_vocoder_train_step(mel, mel_l1)
+        if sharded:
+            parallel.replicate_state(state, mesh)
+            step = parallel.make_parallel_train_step(step, mesh)
+        metrics = step(state, batch)
+        grads = {f"critic {n}": p.grad.detach().clone() for n, p in state.critics.named_parameters()}
+        grads.update({f"generator {n}": p.grad.detach().clone()
+                      for n, p in state.generator.named_parameters()})
+        return {k: v.item() for k, v in metrics.items()}, grads
+
+    report = {}
+    if mesh.rank == 0:
+        want, want_grads = run(batch, sharded=False)
+    dist_barrier(mesh)
+    snake_antialias.launches = 0
+    got, got_grads = run(parallel.shard_rows(batch, mesh), sharded=True)
+    torch.cuda.synchronize()
+    report["snake_launches"] = snake_antialias.launches
+    if mesh.rank == 0:
+        rows_ = [(abs(got[k] - v) / (VOCODER_LOSS_RTOL * abs(v)), k) for k, v in want.items()]
+        median = None
+        for part in ("critic", "generator"):
+            sub_w = {n: g for n, g in want_grads.items() if n.startswith(part)}
+            sub_g = {n: got_grads[n] for n in sub_w}
+            top = max(g.abs().max().item() for g in sub_w.values())
+            scaled = [((sub_g[n] - g).abs().max().item() / (g.abs().max().item() + 1e-3 * top), n)
+                      for n, g in sub_w.items()]
+            rows_ += [(e / VOCODER_GRAD_REL[part], n) for e, n in scaled]
+            if part == "generator":
+                median = sorted(e for e, _ in scaled)[len(scaled) // 2]
+        report.update(want=want, got=got, worst=max(rows_), generator_median=median)
+    return report
+
+
+def _parallel_synthesis(rank: int, data: dict) -> dict:
+    """(d) `Synthesizer.tts` of the main path's DeX + HiFi-GAN over dp2 and
+    over dp1×tp2 (4 sentences, 50 euler steps); rank 0 also runs one
+    process, and the same with another noise seed (the control)."""
+    import copy
+
+    from dex_tts_tpu_torch import parallel
+    from dex_tts_tpu_torch.models.edm import SamplerConfig
+    from dex_tts_tpu_torch.ops.attention import flash_attention
+    from dex_tts_tpu_torch.pipeline import Synthesizer
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    preset, synth = build_main_path("vctk_bench")
+    texts, feats = SENTENCES[:4], random_ref_feats(4, seed=9)
+
+    def mels(s, seed=1):
+        out = s.tts(texts, generator=torch.Generator("cuda").manual_seed(seed), ref_feats=feats)
+        return [torch.from_numpy(r["mel"]) for r in out], [r["n_frames"] for r in out]
+
+    report = {}
+    if rank == 0:
+        want, frames = mels(synth)
+        control, _ = mels(synth, seed=2)
+    out = {}
+    for label, tp_size in (("dp2", 1), ("dp1xtp2", 2)):
+        mesh = parallel.make_mesh(tp_size=tp_size)
+        sharded = Synthesizer(copy.deepcopy(synth.model), synth.vocoder, cmu_path=preset.cmu_path,
+                              sampler=SamplerConfig(num_steps=preset.n_timesteps), device="cuda",
+                              mesh=mesh)
+        flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, got_frames = mels(sharded)
+        wall = time.perf_counter() - t0
+        out[label] = dict(launches=flash_attention.launches, wall_s=wall,
+                          per_call=preset.model.dit.depth * preset.n_timesteps,
+                          shard_count=parallel.shard_count(sharded.model))
+        if rank == 0:
+            scale = max(m.abs().max().item() for m in want)
+            out[label].update(
+                frames_equal=got_frames == frames,
+                ratio=max((g - w).abs().max().item() for g, w in zip(got, want))
+                / (PARALLEL_MEL_REL * scale))
+        del sharded
+    if rank == 0:
+        scale = max(m.abs().max().item() for m in want)
+        report["control_ratio"] = max((c - w).abs().max().item() for c, w in zip(control, want)) \
+            / (PARALLEL_MEL_REL * scale)
+    report.update(out)
+    return report
+
+
+def _parallel_rank(rank: int, data: dict, preset, argv: list) -> dict:
+    """(a), (c), (d) and (e) (a first run, then ``--resume``) in one pair of
+    gloo ranks on one card, each part's wall in ``walls``."""
+    parts = dict(train=lambda: _parallel_train(rank, data),
+                 vocoder=lambda: _parallel_vocoder(rank, data),
+                 synthesis=lambda: _parallel_synthesis(rank, data),
+                 cli_first=lambda: _parallel_cli(rank, preset, argv),
+                 cli_resumed=lambda: _parallel_cli(rank, preset, argv + ["--resume"]))
+    out, walls = {}, {}
+    for name, part in parts.items():
+        t0 = time.perf_counter()
+        out[name] = part()
+        walls[name] = round(time.perf_counter() - t0, 1)
+    return dict(out, walls=walls)
+
+
+def _parallel_cli(rank: int, preset, argv: list) -> dict:
+    """(e) `python -m dex_tts_tpu_torch.main train` on this rank, with
+    checkpoint writes and restores counted."""
+    from unittest import mock
+
+    from dex_tts_tpu_torch import config
+    from dex_tts_tpu_torch import main as port_main
+    from dex_tts_tpu_torch.train import checkpoint
+
+    config.PRESETS[PARALLEL_CLI_PRESET] = lambda: preset
+    writes, restores = [], []
+    write, restore = checkpoint._write, checkpoint.CheckpointManager.restore
+
+    def counted_write(payload, path):
+        writes.append(os.path.basename(path))
+        write(payload, path)
+
+    def counted_restore(self, state, tag):
+        out = restore(self, state, tag)
+        restores.append((tag, state.step))
+        return out
+
+    with mock.patch.object(checkpoint, "_write", counted_write), \
+            mock.patch.object(checkpoint.CheckpointManager, "restore", counted_restore):
+        trainer = port_main.main(argv)
+    return dict(writes=writes, restores=restores, step=trainer.state.step,
+                world=trainer.mesh.world_size)
+
+
+def phase_parallel(card: str, directory: str) -> dict:
+    """Data and tensor parallelism on the card. This machine has one card,
+    and NCCL refuses two ranks on one device, so the multi-rank runs are
+    two gloo ranks sharing cuda:0 (their times are two ranks on one card,
+    not a scaling number), and the nccl run has world size 1:
+      (a) the ESD train step at full width, global batch 32 (16 per rank,
+          from `BucketBatcher(process_count=2)` on a dataset written here),
+          attention "auto" and "flash_bf16": the DP step against the
+          one-process step on the same 32 rows (`PARALLEL_BOUNDS`: losses,
+          every gradient before the clip; BatchNorm statistics and the
+          codebook within `PARALLEL_BUFFER_RTOL`), a plain-DDP control
+          (per-rank denominators, BatchNorm and codebook counts, gradients
+          averaged) outside the bound, then timed DP steps with K1 and K4
+          launches per rank;
+      (b) one DP step over nccl at world size 1, equal to the plain step
+          bit for bit (metrics, weights, EMA);
+      (c) the BigVGAN f32 GAN step, 2 ranks × 8 × 8192 against 16 × 8192:
+          both losses and both optimizers' gradients within the card-vs-CPU
+          vocoder bounds, K3 launches per rank;
+      (d) `Synthesizer.tts` (vctk_bench, 4 sentences, euler 50) over dp2
+          and dp1×tp2 against one process within `PARALLEL_MEL_REL`, a
+          control with another noise seed outside, K1 launches per rank;
+      (e) `main train` on the same two gloo ranks for one epoch: rank 0
+          alone writes checkpoints and the log, ``--resume`` restores on
+          both ranks, and the checkpoint loads into a one-process
+          `load_synthesizer`.
+    (a), (c), (d) and (e) run in one launch of the two ranks, (b) in this
+    process: each launch costs a process start and a CUDA context per
+    rank. → report."""
+    import dataclasses
+
+    from dex_tts_tpu_torch import parallel
+    from dex_tts_tpu_torch.config import build_vocoder, load_preset
+    from dex_tts_tpu_torch.eval.evaluation import load_synthesizer
+    from dex_tts_tpu_torch.models.vocoder import HiFiGANConfig
+
+    torch.cuda.empty_cache()
+    train_path, val_path = write_training_set(os.path.join(directory, "data"), 40)
+    wav_dir = os.path.join(directory, "wavs")
+    os.makedirs(wav_dir)
+    data = dict(train=train_path, valid=val_path, wavs=write_reference_wavs(wav_dir, 8))
+    # (e)'s preset, data and vocoder release
+    esd = load_preset("esd")
+    small_train, small_valid = write_training_set(os.path.join(directory, "cli"), 16)
+    voc_dir = os.path.join(directory, "hifigan")
+    torch.manual_seed(44)
+    vocoder = build_vocoder(HiFiGANConfig(), device="cuda")
+    perturb_(vocoder, seed=44, scale=0.002)
+    write_hifigan_release(voc_dir, vocoder)
+    del vocoder
+    exp = os.path.join(directory, "exp")
+    argv = ["train", "--preset", PARALLEL_CLI_PRESET, "--train_path", small_train, "--val_path",
+            small_valid, "--exp_dir", exp, "--seed", "1"]
+    preset = dataclasses.replace(esd, vocoder_path=voc_dir, train=dataclasses.replace(
+        esd.train, epoch=1, batch_size=4, syn_every=0))
+    t0 = time.perf_counter()
+    ranks = parallel.launch(_parallel_rank, 2, args=(data, preset, argv), backend="gloo",
+                            devices=["cuda:0", "cuda:0"], timeout=900)
+    wall_ranks = time.perf_counter() - t0
+    r0 = ranks[0]
+    train = r0["train"]
+    for attention, rep in train.items():
+        depth = rep["depth"] if rep["mode"].startswith("flash") else 0
+        for r in ranks:
+            got = r["train"][attention]["launches"]
+            want = dict(flash_attention=PARALLEL_TIMED_STEPS * depth,
+                        flash_attention_bwd=PARALLEL_TIMED_STEPS * depth,
+                        maximum_path=PARALLEL_TIMED_STEPS)
+            assert got == want, (attention, got, want)
+        log(f"[parallel (a), esd train, attention {attention} → {rep['mode']}, dp2 gloo, two ranks"
+            f" on one card] total_loss one process {rep['want_loss']:.6f}, dp {rep['got_loss']:.6f},"
+            f" plain DDP {rep['ddp_loss']:.6f}; worst error/bound: losses {rep['loss_ratio']:.3e},"
+            f" gradients {rep['grad_ratio'][0]:.3e} ({rep['grad_ratio'][1]}), buffers"
+            f" {rep['buffer_ratio']:.3e}; plain-DDP control: gradients"
+            f" {rep['ddp_grad_ratio'][0]:.3e} ({rep['ddp_grad_ratio'][1]}), loss"
+            f" {rep['ddp_loss_ratio']:.3e} (bounds {PARALLEL_BOUNDS[attention]}, buffers rtol"
+            f" {PARALLEL_BUFFER_RTOL}) [{card}]")
+        log(f"[parallel (a) timed, {attention}] {PARALLEL_TIMED_STEPS} DP steps per rank:"
+            f" {[round(r['train'][attention]['steps_per_s'], 4) for r in ranks]} steps/s (two"
+            f" ranks sharing one card, not a scaling number), peak memory per rank"
+            f" {[round(r['train'][attention]['peak_gib'], 2) for r in ranks]} GiB, launches per"
+            f" rank {[r['train'][attention]['launches'] for r in ranks]} [{card}]")
+        assert rep["loss_ratio"] <= 1 and rep["grad_ratio"][0] <= 1, rep
+        assert rep["buffer_ratio"] <= 1, rep
+        assert rep["ddp_grad_ratio"][0] > 1, ("the plain-DDP control lies inside the bound", rep)
+
+    voc = r0["vocoder"]
+    log(f"[parallel (c), BigVGAN f32 GAN step, dp2 gloo 2 x {PARALLEL_VOCODER_ROWS} x 8192 vs"
+        f" {2 * PARALLEL_VOCODER_ROWS} x 8192] losses {voc['got']} vs {voc['want']}; worst"
+        f" error/bound {voc['worst'][0]:.3e} ({voc['worst'][1]}), median generator tensor"
+        f" {voc['generator_median']:.3e}; K3 launches per rank"
+        f" {[r['vocoder']['snake_launches'] for r in ranks]} [{card}]")
+    assert voc["worst"][0] <= 1 and voc["generator_median"] <= VOCODER_GRAD_MEDIAN_REL, voc
+    assert all(r["vocoder"]["snake_launches"] == SNAKE_LAUNCHES for r in ranks), ranks
+
+    syn = r0["synthesis"]
+    for label in ("dp2", "dp1xtp2"):
+        log(f"[parallel (d), vctk_bench + HiFi-GAN, 4 sentences, euler 50, {label}] worst"
+            f" |mel - one process| / ({PARALLEL_MEL_REL} x max|mel|) {syn[label]['ratio']:.3e};"
+            f" frames equal {syn[label]['frames_equal']}; K1 launches per rank"
+            f" {[r['synthesis'][label]['launches'] for r in ranks]}; tp-sharded tensors"
+            f" {syn[label]['shard_count']}; first call's wall {syn[label]['wall_s']:.3f} s"
+            f" [{card}]")
+        assert syn[label]["ratio"] <= 1 and syn[label]["frames_equal"], syn
+        assert all(r["synthesis"][label]["launches"] == syn[label]["per_call"]
+                   for r in ranks), ranks
+    assert syn["dp1xtp2"]["shard_count"] > 0 and syn["dp2"]["shard_count"] == 0, syn
+    log(f"[parallel (d) control] another noise seed: {syn['control_ratio']:.3e} x the bound")
+    assert syn["control_ratio"] > 1, syn
+
+    t0 = time.perf_counter()
+    nccl = _parallel_nccl(directory, data)
+    wall_b = time.perf_counter() - t0
+    log(f"[parallel (b), esd train step over {nccl['backend']} at world size {nccl['world']}]"
+        f" metrics equal {nccl['metrics_equal']}, weights equal {nccl['params_equal']}, EMA"
+        f" equal {nccl['ema_equal']}: {nccl['dp']} [{card}]")
+    assert nccl["backend"] == "nccl" and nccl["metrics_equal"] and nccl["params_equal"] \
+        and nccl["ema_equal"], nccl
+
+    # (e) the train entry point on the same two gloo ranks
+    first = [r["cli_first"] for r in ranks]
+    resumed = [r["cli_resumed"] for r in ranks]
+    log_lines = open(os.path.join(exp, "log.txt")).read().splitlines()
+    names = sorted(os.listdir(os.path.join(exp, "ckpt")))
+    log(f"[parallel (e), main train on 2 gloo ranks, esd width, batch 4, 16 items] epoch 1:"
+        f" writes per rank {[r['writes'] for r in first]}, steps {[r['step'] for r in first]};"
+        f" --resume: restores per rank {[r['restores'] for r in resumed]}, steps"
+        f" {[r['step'] for r in resumed]}; log {len(log_lines)} lines; checkpoints {names}"
+        f" [{card}]")
+    assert first[0]["writes"] and not first[1]["writes"], first
+    assert resumed[0]["writes"] and not resumed[1]["writes"], resumed
+    assert all(r["world"] == 2 for r in first + resumed)
+    steps = first[0]["step"]
+    assert steps > 0 and all(r["step"] == steps for r in first), first
+    assert all(r["restores"] == [("last", steps)] and r["step"] == 2 * steps
+               for r in resumed), resumed
+    assert len(log_lines) == 2 and log_lines[1].startswith("epoch 1 | "), log_lines
+    assert {"last.pth", "best-train.pth", "best-val.pth"} <= set(names), names
+    synth = load_synthesizer(preset, exp, tag="last", device="cuda")
+    saved = torch.load(os.path.join(exp, "ckpt", "last.pth"), weights_only=True)
+    weights = saved["ema"] if preset.ema else saved["state_dict"]
+    for n, v in synth.model.state_dict().items():
+        assert torch.equal(v.cpu(), weights[n]), n
+    out = synth.tts([SENTENCES[0]], generator=torch.Generator("cuda").manual_seed(0),
+                    ref_feats=random_ref_feats(1))[0]
+    assert np.isfinite(out["mel"]).all() and np.isfinite(out["wav"]).all(), out
+    log(f"[parallel (e)] load_synthesizer(tag='last') in one process: weights equal the file's,"
+        f" one sentence {out['n_frames']} frames, finite mel and wav; walls: the gloo ranks"
+        f" (a, c, d, e) {wall_ranks:.1f} s (parts on rank 0, s: {r0['walls']}), the nccl rank"
+        f" (b, in this process) {wall_b:.1f} s [{card}]")
+    del synth
+    torch.cuda.empty_cache()
+    launches = {
+        "flash_attention": {f"parallel_train_{k}_{PARALLEL_TIMED_STEPS}_steps_per_rank":
+                            v["launches"]["flash_attention"] for k, v in train.items()},
+        "flash_attention_bwd": {f"parallel_train_{k}_{PARALLEL_TIMED_STEPS}_steps_per_rank":
+                                v["launches"]["flash_attention_bwd"] for k, v in train.items()},
+        "maximum_path": {f"parallel_train_{k}_{PARALLEL_TIMED_STEPS}_steps_per_rank":
+                         v["launches"]["maximum_path"] for k, v in train.items()},
+        "snake": {"parallel_vocoder_step_per_rank": voc["snake_launches"]},
+    }
+    launches["flash_attention"].update({f"parallel_synthesis_{k}_per_rank": syn[k]["launches"]
+                                        for k in ("dp2", "dp1xtp2")})
+    return dict(train=train, vocoder=voc, synthesis=syn, nccl=nccl, launches=launches,
+                cli=dict(first=first, resumed=resumed))
+
+
 BENCH_RUNS = [
     ("default", [], 200, 0),
     ("dpmpp2m_16", ["--solver", "dpmpp2m", "--steps", "16"], 64, 0),
@@ -2364,6 +2869,9 @@ def main():
         evaluated = phase_eval(card, tmp)
     with torch_tf32_defaults():
         benches = phase_bench(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel_run = phase_parallel(card, tmp)
+    par = parallel_run["launches"]
     paths = {"hifigan": hifigan["request_1"]["launches"], "bigvgan": bigvgan["request_1"]["launches"],
              **{f"hifigan_{k}": v["launches"] for k, v in hifigan["options"].items()},
              **served["launches"], **evaluated["launches"],
@@ -2387,7 +2895,8 @@ def main():
                              # synthesis), and its periodic synthesis alone
                              "trainer_fit": fit["fit_flash_launches"],
                              "trainer_fit_synthesis": sum(c["flash_attention"]
-                                                          for c in fit["synthesis"])},
+                                                          for c in fit["synthesis"]),
+                             **par["flash_attention"]},
         "max_abs_err": bf16["max_abs_err"],
         "ms": bf16["ms"],
         "plain_ms": bf16["plain_ms"],
@@ -2417,7 +2926,8 @@ def main():
         # one count per backward call (bf16: the one-pass kernel and its
         # dQ convert)
         "launches": train["flash_bf16"]["launches"]["flash_attention_bwd"],
-        "launches_by_path": {k: v["flash_attention_bwd"] for k, v in train_launches.items()},
+        "launches_by_path": {**{k: v["flash_attention_bwd"] for k, v in train_launches.items()},
+                             **par["flash_attention_bwd"]},
         "max_abs_err": bwd[torch.bfloat16]["max_abs_err"],
         # every time covers one FlashAttentionQKV forward (with the
         # log-sum-exp) and backward, the call a train step makes, as the
@@ -2443,7 +2953,8 @@ def main():
         "source": "dex_tts_tpu_torch/csrc/mas.cu",
         "replaces": "dex_tts_tpu/ops/mas.py:247",
         "launches": train["flash_bf16"]["launches"]["maximum_path"],
-        "launches_by_path": {k: v["maximum_path"] for k, v in train_launches.items()},
+        "launches_by_path": {**{k: v["maximum_path"] for k, v in train_launches.items()},
+                             **par["maximum_path"]},
         "max_abs_err": mas_err,
         "ms": mas[MAS_SHAPES[0]]["ms"],  # the wrapper's wall time per call
         "device_ms": mas[MAS_SHAPES[0]]["device_ms"],  # the kernel's, torch.profiler
@@ -2466,7 +2977,7 @@ def main():
                              f"vocoder_train_bigvgan_{VOCODER_STEPS}_steps":
                                  vocoder_train["bigvgan"]["launches"],
                              f"vocoder_train_hifigan_{VOCODER_STEPS_HIFIGAN}_steps":
-                                 vocoder_train["hifigan"]["launches"]},
+                                 vocoder_train["hifigan"]["launches"], **par["snake"]},
         "launches_per_vocoder_train_step": vocoder_train["bigvgan"]["per_step"],
         "max_abs_err": sb["max_abs_err"],
         # times: one generator call at request 1's shapes, Σ over the six
@@ -2513,6 +3024,15 @@ def main():
                                           if k != "train_default")
         + f"; train {benches['train_default']['value']} steps/s, peak"
         f" {benches['train_default']['peak_mem_gib']:.3f} GiB [{card}]")
+    log("parallel (two gloo ranks on one card): esd DP step vs one process worst error/bound "
+        + ", ".join(f"{k} {v['grad_ratio'][0]:.3e} (plain DDP {v['ddp_grad_ratio'][0]:.3e})"
+                    for k, v in parallel_run["train"].items())
+        + "; DP steps/s per rank " + ", ".join(f"{k} {v['steps_per_s']:.4f}"
+                                              for k, v in parallel_run["train"].items())
+        + f"; vocoder dp2 {parallel_run['vocoder']['worst'][0]:.3e}; synthesis dp2"
+        f" {parallel_run['synthesis']['dp2']['ratio']:.3e}, dp1xtp2"
+        f" {parallel_run['synthesis']['dp1xtp2']['ratio']:.3e}; nccl world 1 bit-equal"
+        f" {parallel_run['nccl']['params_equal']} [{card}]")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
     python -m dex_tts_tpu_torch.main train --preset esd \\
         --train_path filelists/ESD/train.txt --val_path filelists/ESD/valid.txt \\
         --exp_dir checkpoints/esd [--seed 100] [--resume] [--init_from PATH] \\
-        [--n_timesteps 50] [--solver euler] [--device cuda]
+        [--n_timesteps 50] [--solver euler] [--n_devices N] [--device cuda]
+    torchrun --nproc_per_node N -m dex_tts_tpu_torch.main train ...
     python -m dex_tts_tpu_torch.main test --preset esd \\
         --test_checkpoint <exp_dir or .pth> [--val_path filelists/ESD/test.txt] \\
         [--tag best-train] [--sample_size 10] [--test_file sentences.txt] \\
@@ -18,6 +19,13 @@ reference-format torch checkpoint; every ``train.syn_every`` epochs the
 trainer synthesizes a few validation sentences into ``<exp_dir>/sample/``
 (``--n_timesteps`` and ``--solver``) with the preset's vocoder; SIGTERM
 or SIGINT saves ``last`` and ``preempt`` and returns.
+
+Training is data-parallel over ``--n_devices`` ranks (default: every
+card; 1 with ``--device cpu``), lowered until it divides the batch size,
+one process per card started here (gloo ranks on the CPU with ``--device
+cpu``), or over the ranks torchrun started. Each rank loads its rows of
+every global batch; the step equals the one-process step on the global
+batch (`parallel`). Asking for more cards than there are raises.
 
 The test action (`eval.evaluation.run_objective_eval`) synthesizes the
 first ``--sample_size`` items of ``--val_path`` (or the preset's) with the
@@ -35,7 +43,9 @@ import dataclasses
 import os
 
 import torch
+import torch.distributed as dist
 
+from dex_tts_tpu_torch import parallel
 from dex_tts_tpu_torch.config import Preset, build_model, load_preset
 from dex_tts_tpu_torch.convert import load_numpy_state, load_torch_trainer_checkpoint
 from dex_tts_tpu_torch.data import BucketBatcher, TextMelDataset
@@ -59,6 +69,9 @@ def parse_args(argv=None):
                    help="sampler steps of the periodic synthesis and of the test action")
     p.add_argument("--solver", default="euler", choices=["euler", "heun", "dpmpp2m"],
                    help="ODE solver of the periodic synthesis and of the test action")
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="train: data-parallel ranks, one per card (default: every card; "
+                        "1 with --device cpu)")
     p.add_argument("--device", default=None, help="default: cuda")
     p.add_argument("--test_checkpoint", default=None, metavar="PATH",
                    help="test: the experiment directory or .pth file to evaluate (required)")
@@ -160,37 +173,81 @@ def make_synthesis_callback(preset: Preset, model, exp_dir: str, n_timesteps: in
     return syn_fn
 
 
-def make_loaders(preset: Preset, seed: int):
+def make_loaders(preset: Preset, seed: int, process_count: int = 1, process_index: int = 0):
     """Train and validation batchers over the preset's filelists → (train
-    loader factory, valid loader factory, train dataset)."""
+    loader factory, valid loader factory, train dataset). With
+    ``process_count`` > 1 each batcher yields rank ``process_index``'s rows
+    of every global batch, at the global batch's bucket shapes."""
     tc = preset.train
     common = dict(cmu_path=preset.cmu_path, add_blank=preset.add_blank,
                   load_style=preset.model.use_style, aug_types=tuple(tc.aug_type), seed=seed)
     train_ds = TextMelDataset(preset.train_path, **common)
     val_ds = TextMelDataset(preset.val_path, **common)
     bq = dict(batch_size=tc.batch_size, x_quantum=tc.x_quantum, y_quantum=tc.y_quantum,
-              seed=seed)
+              seed=seed, process_count=process_count, process_index=process_index)
     return (lambda: BucketBatcher(train_ds, shuffle=True, **bq),
             lambda: BucketBatcher(val_ds, shuffle=False, **bq), train_ds)
 
 
+def data_parallel_size(batch_size: int, n_devices: int | None, device=None) -> int:
+    """The number of data-parallel ranks ``main train`` starts: ``n_devices``
+    (default: every card; 1 on the CPU), lowered until it divides
+    ``batch_size`` (JAX: main.py:214-228). More ranks than cards raises and
+    names both counts; CUDA without a card raises unless the CPU is asked
+    for (`parallel.runtime.rank_devices`)."""
+    n = len(parallel.runtime.rank_devices(n_devices, device))
+    while n > 1 and batch_size % n:
+        n -= 1
+    return n
+
+
 def train(preset: Preset, exp_dir: str, seed: int = 100, resume: bool = False,
           device=None, init_from: str | None = None, n_timesteps: int = 50,
-          solver: str = "euler") -> Trainer:
+          solver: str = "euler", n_devices: int | None = None) -> Trainer | None:
     """Build the model (initialised from ``seed``, or warm-started from
     ``init_from``), the train state and the trainer, resume from ``last``
     if asked and a checkpoint is there, and run the preset's epochs with
     periodic synthesis every ``train.syn_every`` epochs and a
     `PreemptionGuard` installed (the previous signal handlers come back
-    when this returns). → the trainer."""
+    when this returns). → the trainer; None when it started the ranks
+    itself (`data_parallel_size` > 1). Inside a process group (torchrun, or
+    `parallel.launch`) this is one rank of a data-parallel run."""
+    if not parallel.initialize(device=device):
+        n = data_parallel_size(preset.train.batch_size, n_devices, device)
+        if n > 1:
+            parallel.launch(_train_rank, n, devices=parallel.runtime.rank_devices(n, device),
+                            timeout=None, args=(preset, exp_dir, seed, resume, init_from,
+                                                n_timesteps, solver))
+            return None
+    elif device is None:
+        device = parallel.runtime.rank_device()
+    return _train(preset, exp_dir, seed, resume, device, init_from, n_timesteps, solver)
+
+
+def _train_rank(rank, preset, exp_dir, seed, resume, init_from, n_timesteps, solver):
+    _train(preset, exp_dir, seed, resume, parallel.runtime.rank_device(), init_from,
+           n_timesteps, solver)
+
+
+def _train(preset: Preset, exp_dir: str, seed: int, resume: bool, device, init_from,
+           n_timesteps: int, solver: str) -> Trainer:
     tc = preset.train
+    mesh = None
+    if dist.is_initialized():
+        world = dist.get_world_size()
+        if tc.batch_size % world:
+            raise ValueError(f"batch_size {tc.batch_size} must divide evenly over {world} ranks")
+        mesh = parallel.make_mesh()
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world_size)
     torch.manual_seed(seed)  # parameter init only; steps draw from the state's generator
     model = build_model(preset.model, device=device)
     state = create_train_state(model, seed=seed, lr=tc.lr, max_grad=tc.max_grad)
     if init_from:
         warm_start_state(state, init_from)
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"model params: {n_params / 1e6:.2f} M | out_size: {preset.out_size()}")
+    if rank == 0:
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"model params: {n_params / 1e6:.2f} M | out_size: {preset.out_size()}"
+              + (f" | {world} data-parallel ranks" if world > 1 else ""))
     syn_fn = make_synthesis_callback(preset, model, exp_dir, n_timesteps=n_timesteps,
                                      solver=solver, device=device)
     # SIGTERM (maintenance, reclaim) → checkpoint and a clean return
@@ -199,11 +256,15 @@ def train(preset: Preset, exp_dir: str, seed: int = 100, resume: bool = False,
         trainer = Trainer(state, exp_dir, out_size=preset.out_size(), ema_decay=tc.ema_decay,
                           mask_ratio=tc.mask_ratio, accum_steps=tc.accum_steps,
                           save_epoch=tc.save_epoch, async_ckpt=tc.async_ckpt,
-                          preemption=guard, syn_every=tc.syn_every, syn_fn=syn_fn)
+                          preemption=guard, syn_every=tc.syn_every, syn_fn=syn_fn, mesh=mesh)
         if resume and trainer.ckpt.exists("last"):
-            trainer.ckpt.restore(state, "last")
-            print(f"resumed from step {state.step}")
-        train_fn, valid_fn, _ = make_loaders(preset, seed)
+            trainer.ckpt.restore(state, "last")  # on every rank, then replicated
+            if mesh is not None:
+                parallel.replicate_state(state, mesh)
+            if rank == 0:
+                print(f"resumed from step {state.step}")
+        train_fn, valid_fn, _ = (make_loaders(preset, seed) if mesh is None
+                                 else make_loaders(preset, seed, world, rank))
         trainer.fit(train_fn, valid_fn, epochs=tc.epoch)
     finally:
         # only fit polls the guard: in-process callers keep a working Ctrl-C
@@ -233,8 +294,9 @@ def main(argv=None):
         return test(args, preset)
     if preset.train is None:
         raise SystemExit(f"preset {args.preset!r} has no train block")
-    train(preset, args.exp_dir, seed=args.seed, resume=args.resume, device=args.device,
-          init_from=args.init_from, n_timesteps=args.n_timesteps, solver=args.solver)
+    return train(preset, args.exp_dir, seed=args.seed, resume=args.resume, device=args.device,
+                 init_from=args.init_from, n_timesteps=args.n_timesteps, solver=args.solver,
+                 n_devices=args.n_devices)
 
 
 if __name__ == "__main__":

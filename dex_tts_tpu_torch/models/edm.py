@@ -17,6 +17,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from dex_tts_tpu_torch.parallel import collectives
+
 
 def edm_precond_scalings(sigma, sigma_data: float = 0.5):
     """c_skip, c_out, c_in, c_noise. reference: DEX-TTS/model/edm.py:88-98."""
@@ -69,17 +71,18 @@ def edm_loss(denoise_fn, x0, mask, mu, n_feats: int = 80, p_mean: float = -1.2,
     """EDM training loss with mu-shifted noise. x0, mu (B, F, W), mask
     (B, 1, W). σ = exp(r·p_std + p_mean) per item; ``draws`` = (r (B, 1, 1),
     noise (B, F, W)), standard normals, else both drawn from
-    ``generator``. reference: DEX-TTS/model/edm.py:22-68."""
+    ``generator``. Data-parallel: the global batch's draws and mask sum
+    (`parallel.collectives`). reference: DEX-TTS/model/edm.py:22-68."""
     if draws is None:
-        rnd = torch.randn((x0.shape[0], 1, 1), generator=generator, device=x0.device)
-        noise = torch.randn(x0.shape, generator=generator, device=x0.device)
+        rnd = collectives.randn((x0.shape[0], 1, 1), generator=generator, device=x0.device)
+        noise = collectives.randn(x0.shape, generator=generator, device=x0.device)
     else:
         rnd, noise = draws
     sigma = torch.exp(rnd.to(x0.dtype) * p_std + p_mean)
     weight = edm_loss_weight(sigma, loss_type, sigma_data)
     n = (noise.to(x0.dtype) + mu) * sigma
     d_x = apply_precond(denoise_fn, x0 + n, sigma[:, 0, 0], sigma_data, **kwargs)
-    return (weight * (d_x - x0) ** 2).sum() / (mask.sum() * n_feats)
+    return (weight * (d_x - x0) ** 2).sum() / (collectives.global_sum(mask.sum()) * n_feats)
 
 
 @dataclass(frozen=True)
@@ -317,7 +320,8 @@ def ablation_sampler(denoise_fn, latents, cfg: SamplerConfig, sigma_data: float 
         ps = _per_step(sched, i)
         x_hat = ps["ratio_s"] * x
         if cfg.s_churn > 0:
-            noise = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+            noise = collectives.randn(x.shape, generator=generator, dtype=x.dtype,
+                                      device=x.device)
             x_hat = x_hat + ps["churn_std"] * noise
         den = denoised_at(x_hat * ps["inv_s_hat"], ps["sigma_hat"])
         d_cur = ps["a_hat"] * x_hat - ps["b_hat"] * den

@@ -21,10 +21,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dex_tts_tpu_torch.parallel import collectives
+from dex_tts_tpu_torch.parallel.tp import TensorParallelLinear
+
 
 def run_in(mod: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Apply a Linear/Conv/ConvTranspose2d module with input, weight and
     bias cast to ``dtype`` (a no-op cast when they already are)."""
+    if isinstance(mod, TensorParallelLinear):
+        return mod(x, dtype)
     w = mod.weight.to(dtype)
     b = None if mod.bias is None else mod.bias.to(dtype)
     x = x.to(dtype)
@@ -56,11 +61,12 @@ def dropout_generator(generator: torch.Generator):
 
 def train_uniform(shape, like: torch.Tensor) -> torch.Tensor:
     """Uniform [0, 1) draws for a train-mode random mask, from the
-    generator of the enclosing `dropout_generator` block."""
+    generator of the enclosing `dropout_generator` block; the leading axis
+    is the batch's (`collectives.rand`)."""
     if not _GENERATORS:
         raise RuntimeError("train-mode dropout needs a generator: wrap the call in "
                            "layers.dropout_generator(generator)")
-    return torch.rand(shape, generator=_GENERATORS[-1], device=like.device)
+    return collectives.rand(shape, generator=_GENERATORS[-1], device=like.device)
 
 
 def dropout(x, p: float, train: bool):
@@ -87,13 +93,20 @@ def batch_norm(bn: nn.BatchNorm1d, x, train: bool):
     statistics. Train: batch statistics over (B, T) in f32 (variance
     E[x²] − E[x]², clipped at 0), and the running statistics updated in
     place as 0.99·running + 0.01·batch, with the biased variance (flax
-    momentum 0.99 = torch momentum 0.01)."""
+    momentum 0.99 = torch momentum 0.01). Data-parallel: the sums of x and
+    x² over every rank's rows, all-reduced with autograd, so every rank
+    normalises by and records the global batch's statistics."""
     if not train:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                             False, 0.0, bn.eps)
     xf = x.float()
-    mean = xf.mean((0, 2))
-    var = torch.clamp((xf**2).mean((0, 2)) - mean**2, min=0.0)
+    world = collectives.dp_world()
+    if world > 1:
+        sums = collectives.global_sum(torch.stack([xf.sum((0, 2)), (xf**2).sum((0, 2))]))
+        mean, ex2 = sums / (xf.shape[0] * xf.shape[2] * world)
+    else:
+        mean, ex2 = xf.mean((0, 2)), (xf**2).mean((0, 2))
+    var = torch.clamp(ex2 - mean**2, min=0.0)
     with torch.no_grad():
         bn.running_mean.mul_(0.99).add_(mean.detach(), alpha=1 - 0.99)
         bn.running_var.mul_(0.99).add_(var.detach(), alpha=1 - 0.99)

@@ -19,6 +19,7 @@ from dex_tts_tpu_torch.models.layers import (
     instance_norm_stats_2d,
     run_in,
 )
+from dex_tts_tpu_torch.parallel import collectives
 
 
 class Projection(DurationPredictor):
@@ -70,7 +71,8 @@ class VQEmbeddingEMA(nn.Module):
     """EMA-updated vector quantizer with a straight-through estimator.
     The codebook state (``embedding``, ``ema_count``, ``ema_weight``) is
     buffers, updated in place under no_grad in train mode, as the JAX
-    package updates its "vq_stats" collection.
+    package updates its "vq_stats" collection. Data-parallel: the counts,
+    the sums and the commitment's denominator are the global batch's.
     reference: DEX-TTS/model/ref_encoder.py:181-237."""
 
     def __init__(self, n_embeddings: int = 512, embedding_dim: int = 192,
@@ -102,14 +104,19 @@ class VQEmbeddingEMA(nn.Module):
         if train:
             with torch.no_grad():
                 onehot = torch.nn.functional.one_hot(indices, m).to(flat.dtype)
-                new_count = self.decay * self.ema_count + (1 - self.decay) * onehot.sum(0)
+                # the global batch's counts and sums: every rank's codebook
+                # moves alike, with no buffer broadcast
+                counts = collectives.global_sum(onehot.sum(0))
+                new_count = self.decay * self.ema_count + (1 - self.decay) * counts
                 n = new_count.sum()
                 new_count = (new_count + self.epsilon) / (n + m * self.epsilon) * n
-                new_weight = self.decay * self.ema_weight + (1 - self.decay) * (onehot.t() @ flat)
+                new_weight = (self.decay * self.ema_weight
+                              + (1 - self.decay) * collectives.global_sum(onehot.t() @ flat))
                 self.ema_count.copy_(new_count)
                 self.ema_weight.copy_(new_weight)
                 self.embedding.copy_(new_weight / new_count[:, None])
-        e_latent = ((x * mask - quant * mask) ** 2).sum() / (mask.sum() * d)
+        e_latent = ((x * mask - quant * mask) ** 2).sum() / (collectives.global_sum(mask.sum())
+                                                             * d)
         return (x + (quant - x).detach()) * mask, self.commitment_cost * e_latent
 
 

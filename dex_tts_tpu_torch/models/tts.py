@@ -33,6 +33,7 @@ from dex_tts_tpu_torch.models.unet import DiffusionDenoiser
 from dex_tts_tpu_torch.ops.mas import MAS_ERRORS, maximum_path
 from dex_tts_tpu_torch.ops.masks import duration_loss, generate_path, sequence_mask
 from dex_tts_tpu_torch.ops.segment import random_segment
+from dex_tts_tpu_torch.parallel import collectives
 
 LOG_2PI = math.log(2 * math.pi)
 
@@ -205,7 +206,7 @@ class GeDEXTTS(nn.Module):
             return denoiser(z, mask3, mu_y, t, mid_override=mid, **denoise_kwargs)
 
         if latents_noise is None:
-            latents_noise = torch.randn(
+            latents_noise = collectives.randn(
                 mu_y.shape, generator=generator, dtype=mu_y.dtype, device=mu_y.device
             )
         latents = latents_noise.to(mu_y.dtype) / temperature + mu_y
@@ -265,7 +266,7 @@ class GeDEXTTS(nn.Module):
                 loss_type=self.cfg.loss_type, generator=generator, draws=edm_draws,
             )
             prior = (0.5 * ((y - mu_y) ** 2 + LOG_2PI) * mask3).sum()
-            losses["prior_loss"] = prior / (mask3.sum() * self.cfg.n_feats)
+            losses["prior_loss"] = prior / (collectives.global_sum(mask3.sum()) * self.cfg.n_feats)
         losses[MAS_ERRORS] = mas_errors
         return losses
 

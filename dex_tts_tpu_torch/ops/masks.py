@@ -8,6 +8,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from dex_tts_tpu_torch.parallel import collectives
+
 
 def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
     """(B,) lengths → (B, max_length) bool mask."""
@@ -37,5 +39,6 @@ def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def duration_loss(logw, logw_, lengths):
     """MSE between predicted and MAS log-durations, normalised by
-    Σlengths. reference: DEX-TTS/model/utils.py:42-44."""
-    return ((logw - logw_) ** 2).sum() / lengths.sum()
+    Σlengths (over every data-parallel rank's rows).
+    reference: DEX-TTS/model/utils.py:42-44."""
+    return ((logw - logw_) ** 2).sum() / collectives.global_sum(lengths.sum())

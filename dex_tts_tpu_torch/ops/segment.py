@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from dex_tts_tpu_torch.ops.masks import sequence_mask
+from dex_tts_tpu_torch.parallel import collectives
 
 
 def random_segment(y, attn, y_lengths, out_size: int, generator=None, u=None):
@@ -17,13 +18,14 @@ def random_segment(y, attn, y_lengths, out_size: int, generator=None, u=None):
 
     y (B, n_feats, Ty), attn (B, Tx, Ty), y_lengths (B,). The offset is
     floor(u · max(len - out_size, 1)), capped at len - out_size, with
-    ``u`` (B,) uniform in [0, 1) drawn from ``generator`` unless given.
+    ``u`` (B,) uniform in [0, 1) drawn from ``generator`` unless given (the
+    global batch's draw when data-parallel).
     Returns (y_cut (B, n_feats, out_size), attn_cut (B, Tx, out_size),
     y_cut_lengths (B,), y_cut_mask (B, 1, out_size))."""
     b = y.shape[0]
     max_offset = torch.clamp(y_lengths - out_size, min=0)
     if u is None:
-        u = torch.rand((b,), generator=generator, device=y.device)
+        u = collectives.rand((b,), generator=generator, device=y.device)
     offset = torch.floor(u * torch.clamp(max_offset, min=1).to(u.dtype)).to(y_lengths.dtype)
     offset = torch.minimum(offset, max_offset)
     idx = offset[:, None] + torch.arange(out_size, device=y.device, dtype=offset.dtype)

@@ -16,6 +16,13 @@ the same shapes for the same inputs. Style comes in as reference wav files
 `split_sentences` and `tts_stream` (batches ramping 1 → 2 → … →
 max_batch, one result per sentence as its batch completes) or
 `tts_long` (full batches, one WAV with pauses).
+
+With a ``mesh`` (`parallel.make_mesh`; every rank of it makes the same
+calls) the batch is padded to a multiple of the dp size, each dp rank
+synthesizes its rows (the noise is the global batch's draw, the frame
+bucket the largest any rank predicts) and the results are gathered, so
+every rank returns the whole batch; with tp > 1 the model's RetNet and DiT
+matmuls are split over the tp group (`parallel.shard_tensor_parallel`).
 """
 
 from __future__ import annotations
@@ -32,6 +39,9 @@ from dex_tts_tpu_torch.audio.stft import MelSpectrogram
 from dex_tts_tpu_torch.audio.wav import peak_normalize, read_wav, resample, trim_silence
 from dex_tts_tpu_torch.models.edm import SamplerConfig
 from dex_tts_tpu_torch.ops.masks import fix_len_compatibility
+from dex_tts_tpu_torch.parallel import collectives
+from dex_tts_tpu_torch.parallel.mesh import shard_rows
+from dex_tts_tpu_torch.parallel.tp import shard_tensor_parallel
 from dex_tts_tpu_torch.text import CMUDict, text_to_sequence
 from dex_tts_tpu_torch.text.symbols import BLANK_ID
 from dex_tts_tpu_torch.utils import intersperse, resolve_device
@@ -101,6 +111,7 @@ class Synthesizer:
         x_quantum: int = 32,
         y_quantum: int = 64,
         pad_batches: bool = True,
+        mesh=None,
     ):
         """model: a DeXTTS / GeDEXTTS with its weights; vocoder: a
         HiFiGANGenerator, a BigVGANGenerator or None. Both are moved to
@@ -108,9 +119,14 @@ class Synthesizer:
         not asked for). add_blank intersperses the blank token; x_quantum
         and y_quantum are the text and frame bucket quanta; pad_batches
         pads every batch to a power of two (repeating the last row; the
-        extra results are dropped), as the JAX package does."""
+        extra results are dropped), as the JAX package does. mesh: data-
+        and tensor-parallel serving (module docstring); the model is
+        tensor-parallel-sharded in place when the mesh's tp size is > 1."""
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.mesh = mesh
+        if mesh is not None:
+            shard_tensor_parallel(self.model, mesh)
         self.vocoder = None if vocoder is None else vocoder.to(self.device).eval()
         self.cmudict = CMUDict(cmu_path) if cmu_path else None
         self.add_blank = add_blank
@@ -176,6 +192,8 @@ class Synthesizer:
             inputs.update(ref=ref, ref_lengths=lens, sty=ref, sty_lengths=lens,
                           lf0=lf0, lf0_lengths=lens)
         b_pad = 1 << (b - 1).bit_length() if self.pad_batches else b
+        if self.mesh is not None:  # every dp rank takes as many rows
+            b_pad = -(-b_pad // self.mesh.dp_size) * self.mesh.dp_size
         if b_pad != b:
             # repeat the last row: padding stays a valid input; the extra
             # rows are dropped from the results
@@ -196,8 +214,9 @@ class Synthesizer:
         return int(frames.max())
 
     def frame_bucket(self, inputs: dict, length_scale=1.0, max_frames: int = 2048) -> int:
-        """The static frame count synthesis runs at for this batch."""
-        n_frames = self.predict_frames(inputs, length_scale)
+        """The static frame count synthesis runs at for this batch (the
+        largest over the mesh's ranks)."""
+        n_frames = collectives.agree_max(self.predict_frames(inputs, length_scale), self.mesh)
         return fix_len_compatibility(min(_bucket(n_frames, self.y_quantum, 8), max_frames))
 
     @torch.no_grad()
@@ -239,17 +258,20 @@ class Synthesizer:
             ref_feats = [self.prepare_reference(p) for p in ref_wavs]
 
         inputs, b = self.prepare_batch(texts, spk_ids, ref_feats)
+        if self.mesh is not None:
+            inputs = shard_rows(inputs, self.mesh)
         y_len = self.frame_bucket(inputs, length_scale, max_frames)
         cond = {k: v for k, v in inputs.items() if k not in ("x", "x_lengths")}
-        _, mel, _, y_lengths = self.model.synthesize(
-            inputs["x"], inputs["x_lengths"], y_max_length=y_len, sampler=sampler,
-            temperature=temperature, length_scale=length_scale,
-            generator=generator, **cond,
-        )
         with_voc = vocode and self.vocoder is not None
-        wavs = self.vocoder(mel).cpu().numpy() if with_voc else None
-        mels = mel.cpu().numpy()
-        lens = y_lengths.cpu().numpy()
+        with collectives.data_parallel(self.mesh):
+            _, mel, _, y_lengths = self.model.synthesize(
+                inputs["x"], inputs["x_lengths"], y_max_length=y_len, sampler=sampler,
+                temperature=temperature, length_scale=length_scale,
+                generator=generator, **cond,
+            )
+            wavs = collectives.gather_rows(self.vocoder(mel)).cpu().numpy() if with_voc else None
+            mels = collectives.gather_rows(mel).cpu().numpy()
+            lens = collectives.gather_rows(y_lengths).cpu().numpy()
         results = []
         for i in range(b):
             item = {"mel": mels[i, :, : lens[i]].copy(), "n_frames": int(lens[i])}

@@ -10,6 +10,12 @@ these files. Everything in them loads under ``torch.load(weights_only=True)``.
 ``async_save=True`` snapshots the tensors to host memory at the call and
 writes them in a background thread. `wait` joins it and re-raises what the
 writer raised, so a failed write cannot pass unnoticed.
+
+A tensor-parallel state (`parallel.shard_train_state`) is saved in the
+one-process layout: its slices are gathered first, a collective that every
+rank of the tp group makes (`save_many` on every rank, ``write=False`` on
+all but the one that writes). Restore into a one-process-layout state, then
+shard it: a checkpoint restores into any world or tp size.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import threading
 
 import torch
 
+from dex_tts_tpu_torch.parallel import tp
 from dex_tts_tpu_torch.train.state import TrainState, ema_state_dict
 
 
@@ -34,12 +41,21 @@ def _to_host(tree):
 
 
 def state_payload(state: TrainState, scores: dict | None = None) -> dict:
-    """The host copy of ``state`` that a checkpoint file holds."""
+    """The host copy of ``state`` that a checkpoint file holds, in the
+    one-process layout (tensor-parallel slices gathered: a collective)."""
+    model = state.model
+    if tp.shard_count(model):
+        sd = tp.full_state_dict(model)
+        ema = tp.full_ema(model, state.ema)
+        ema = {k: ema.get(k, v) for k, v in sd.items()}
+        optimizer = tp.full_optimizer_state(state.optimizer, model)
+    else:
+        sd, ema, optimizer = model.state_dict(), ema_state_dict(state), state.optimizer.state_dict()
     return _to_host({
         "scores": dict(scores or {}),
-        "state_dict": state.model.state_dict(),
-        "ema": ema_state_dict(state),
-        "optimizer": state.optimizer.state_dict(),
+        "state_dict": sd,
+        "ema": ema,
+        "optimizer": optimizer,
         "step": int(state.step),
         "generator": state.generator.get_state(),
     })
@@ -52,9 +68,12 @@ def _write(payload: dict, path: str) -> None:
 
 
 class CheckpointManager:
-    def __init__(self, root: str, async_save: bool = False):
+    def __init__(self, root: str, async_save: bool = False, write: bool = True):
+        """``write=False``: `save_many` makes the payload's collectives
+        but writes nothing (a data-parallel rank other than 0)."""
         self.root = os.path.abspath(root)
         self.async_save = async_save
+        self.write = write
         os.makedirs(self.root, exist_ok=True)
         self._writer: threading.Thread | None = None
         self._error: BaseException | None = None
@@ -71,6 +90,10 @@ class CheckpointManager:
         if not tags:
             return
         self.wait()
+        if not self.write:
+            if tp.shard_count(state.model):
+                state_payload(state, scores)  # the tp group's gathers
+            return
         payload = state_payload(state, scores)
         paths = [self.path(t) for t in tags]
 

@@ -41,12 +41,15 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
 
 
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads, max_norm: float, norm: torch.Tensor | None = None
+                         ) -> torch.Tensor:
     """optax.clip_by_global_norm in place: g ← g / norm · max_norm unless
     norm < max_norm, decided on the device (no host sync). Unlike
-    torch.nn.utils.clip_grad_norm_ nothing is added to the norm.
-    Returns the norm before clipping."""
-    norm = global_norm(grads)
+    torch.nn.utils.clip_grad_norm_ nothing is added to the norm. ``norm``:
+    the global norm when ``grads`` are not the whole model's (tensor
+    parallelism), else computed here. Returns the norm before clipping."""
+    if norm is None:
+        norm = global_norm(grads)
     for g in grads:
         g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
     return norm

@@ -11,8 +11,15 @@ reads them once per epoch. A `PreemptionGuard` (``preemption``) is polled
 before each batch: when it has fired, `fit` saves ``last`` and ``preempt``,
 waits for the write and returns. ``syn_fn(state, epoch)`` runs every
 ``syn_every`` epochs after the epoch's checkpoints (periodic synthesis,
-`main.make_synthesis_callback`). The JAX trainer's mesh is not ported
-yet.
+`main.make_synthesis_callback`).
+
+With a ``mesh`` (`parallel.make_mesh`) each rank runs the step on its rows
+of the global batch as its share of the one-process step
+(`parallel.make_parallel_train_step`): the state is broadcast from rank 0
+once, gradients and metrics are summed over the dp group, the ranks agree
+before each batch whether a preemption stops them, and rank 0 alone
+writes checkpoints and the log and runs the periodic synthesis while the
+others wait at a barrier.
 """
 
 from __future__ import annotations
@@ -23,8 +30,11 @@ from typing import Callable, Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dex_tts_tpu_torch.ops.mas import MAS_ERRORS, raise_on_path_errors
+from dex_tts_tpu_torch.parallel import collectives
+from dex_tts_tpu_torch.parallel.mesh import make_parallel_train_step, replicate_state
 from dex_tts_tpu_torch.train.checkpoint import CheckpointManager
 from dex_tts_tpu_torch.train.preemption import PreemptionGuard
 from dex_tts_tpu_torch.train.state import TrainState, clip_by_global_norm_, ema_update_
@@ -75,7 +85,9 @@ def make_train_step(out_size: int | None = None, ema_decay: float = 0.9999,
     but steps on the sum). ``accum_steps`` > 1 splits the batch into that
     many micro-batches run one after the other (gradients averaged;
     BatchNorm and VQ-EMA state updated by each in turn): one optimizer
-    update either way."""
+    update either way. Inside `collectives.data_parallel` the gradients are
+    summed over the dp group before the clip, and micro-batch i is the
+    union of every rank's i-th slice."""
 
     def train_step(state: TrainState, batch: dict) -> dict:
         model = state.model
@@ -101,7 +113,11 @@ def make_train_step(out_size: int | None = None, ema_decay: float = 0.9999,
             if p.grad is None:  # optax updates every leaf, zero grads included
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
-        grad_norm = clip_by_global_norm_(grads, state.max_grad)
+        collectives.reduce_gradients_(grads)
+        mesh = collectives.current()
+        norm = (torch.sqrt(collectives.grad_sq_norm(params))
+                if mesh is not None and mesh.tp_size > 1 else None)
+        grad_norm = clip_by_global_norm_(grads, state.max_grad, norm)
         state.optimizer.step()
         ema_update_(state.ema, model, ema_decay)
         state.step += 1
@@ -138,38 +154,65 @@ class Trainer:
     best-val, every ``save_epoch``, and last (with the optimizer and the
     generator, for resume); ``last`` and ``preempt`` when ``preemption``
     fires. ``syn_fn(state, epoch)`` every ``syn_every`` epochs (0: never;
-    reference: DEX-TTS/src/train.py:176-178)."""
+    reference: DEX-TTS/src/train.py:176-178). ``mesh``: data-parallel (and
+    tensor-parallel, for a state already through `shard_train_state`)
+    training; every rank builds its Trainer and calls `fit` with its own
+    rows (`BucketBatcher(process_count, process_index)`)."""
 
     def __init__(self, state: TrainState, exp_dir: str, out_size: int | None = None,
                  ema_decay: float = 0.9999, mask_ratio: float = 0.0, accum_steps: int = 1,
                  save_epoch: int = 200, async_ckpt: bool = False,
                  preemption: PreemptionGuard | None = None, syn_every: int = 0,
-                 syn_fn: Callable[[TrainState, int], None] | None = None):
-        self.state = state
+                 syn_fn: Callable[[TrainState, int], None] | None = None, mesh=None):
+        if mesh is not None and mesh.tp_size > 1 and syn_every:
+            # rank 0 synthesizes alone, and a split layer needs its tp group
+            raise ValueError("periodic synthesis needs tp_size 1")
+        self.mesh = mesh
+        self.state = state if mesh is None else replicate_state(state, mesh)
+        self.is_writer = mesh is None or mesh.rank == 0
         self.exp_dir = exp_dir
         self.save_epoch = save_epoch
         self.preemption = preemption
         self.syn_every = syn_every
         self.syn_fn = syn_fn
+        self.preempted = False
         os.makedirs(exp_dir, exist_ok=True)
-        self.ckpt = CheckpointManager(os.path.join(exp_dir, "ckpt"), async_save=async_ckpt)
+        self.ckpt = CheckpointManager(os.path.join(exp_dir, "ckpt"), async_save=async_ckpt,
+                                      write=self.is_writer)
         self.train_step = make_train_step(out_size, ema_decay, mask_ratio, accum_steps)
         self.valid_step = make_valid_step(out_size)
+        if mesh is not None:
+            self.train_step = make_parallel_train_step(self.train_step, mesh)
+            self.valid_step = make_parallel_train_step(self.valid_step, mesh)
         self.best_train = float("inf")
         self.best_val = float("inf")
         self.log_path = os.path.join(exp_dir, "log.txt")
 
     def log(self, msg: str):
+        if not self.is_writer:
+            return
         print(msg, flush=True)
         with open(self.log_path, "a") as f:
             f.write(msg + "\n")
+
+    def _barrier(self):
+        """Rank 0's writes are done before any rank goes on."""
+        if self.mesh is not None and self.mesh.world_size > 1:
+            dist.barrier(group=self.mesh.cpu_group)
+
+    def _stop_requested(self) -> bool:
+        flag = self.preemption is not None and self.preemption.triggered
+        if self.mesh is not None:  # a signal to one rank stops all at the same batch
+            flag = collectives.agree_any(flag, self.mesh)
+        self.preempted = self.preempted or flag
+        return flag
 
     def run_epoch(self, loader: Iterable[dict], train: bool = True) -> dict:
         sums, count = None, 0
         device = next(self.state.model.parameters()).device
         generator = torch.Generator(device=device).manual_seed(int(self.state.step))
         for batch in loader:
-            if self.preemption is not None and self.preemption.triggered:
+            if self._stop_requested():
                 break
             batch = {k: v for k, v in batch.items() if not isinstance(v, str)}
             if train:
@@ -189,12 +232,15 @@ class Trainer:
         for epoch in range(start_epoch, epochs):
             t0 = time.time()
             train_metrics = self.run_epoch(train_loader_fn(), train=True)
-            if self.preemption is not None and self.preemption.triggered:
+            # a signal during the epoch's last batch is caught here; every
+            # rank reaches this point, so the vote is safe
+            if self.preempted or self._stop_requested():
                 # grace-window checkpoint: a resume continues from here
                 self.ckpt.save_many(self.state, ["last", "preempt"])
                 self.ckpt.wait()  # durable before the grace window ends
                 self.log(f"preempted during epoch {epoch + 1}: saved last/preempt "
                          "checkpoints, exiting")
+                self._barrier()
                 return self.state
             line = f"epoch {epoch + 1} | " + " ".join(
                 f"{k}={v:.4f}" for k, v in sorted(train_metrics.items()))
@@ -217,7 +263,10 @@ class Trainer:
                 tags.append(f"epoch-{epoch + 1}")
             tags.append("last")
             self.ckpt.save_many(self.state, tags, scores={"epoch": epoch + 1, **scores})
-            if self.syn_every and self.syn_fn and (epoch + 1) % self.syn_every == 0:
+            if (self.is_writer and self.syn_every and self.syn_fn
+                    and (epoch + 1) % self.syn_every == 0):
                 self.syn_fn(self.state, epoch + 1)
+            self._barrier()
         self.ckpt.wait()  # background writes must land before we return
+        self._barrier()
         return self.state

@@ -17,6 +17,11 @@ autograd (`ops.snake.SnakeKernelFunction`: kernel forward, plain
 backward). A parameter that gets no gradient raises: nothing is filled
 with zeros.
 
+Data-parallel (`parallel.make_parallel_train_step`): every loss is a mean
+over rows that each rank holds equally many of, so a rank's loss is its
+mean over ``dp`` ranks (its share of the global batch's mean), and both
+optimizers sum the gradients over the dp group before their clips.
+
 State is one `VocoderTrainState`; checkpoints are ``<root>/<tag>.pth``
 files that load under ``torch.load(weights_only=True)``, and
 ``gen_last.pth`` (the generator's state_dict alone) is what
@@ -46,6 +51,7 @@ from dex_tts_tpu_torch.models.vocoder.discriminators import (
     feature_loss,
     generator_loss,
 )
+from dex_tts_tpu_torch.parallel import collectives
 from dex_tts_tpu_torch.train.checkpoint import _to_host, _write
 from dex_tts_tpu_torch.train.state import clip_by_global_norm_
 from dex_tts_tpu_torch.utils.device import resolve_device
@@ -75,11 +81,14 @@ class VocoderOptimizer:
 
     def step(self) -> torch.Tensor:
         """One update from the parameters' gradients (every one must have
-        one) → the global norm before clipping."""
+        one; summed over the dp group inside a data-parallel block) → the
+        global norm before clipping."""
         missing = [n for n, p in self.named if p.grad is None]
         if missing:
             raise RuntimeError(f"{len(missing)} parameters got no gradient (first: {missing[0]})")
-        norm = clip_by_global_norm_([p.grad for _, p in self.named], MAX_GRAD_NORM)
+        grads = [p.grad for _, p in self.named]
+        collectives.reduce_gradients_(grads)
+        norm = clip_by_global_norm_(grads, MAX_GRAD_NORM)
         self.adamw.step()
         self.schedule.step()
         return norm
@@ -183,6 +192,7 @@ def make_vocoder_train_step(mel_input: MelSpectrogram, mel_loss: MelSpectrogram 
     mel_loss = mel_loss or mel_input
 
     def step(state: VocoderTrainState, batch: dict) -> dict:
+        share = 1.0 / collectives.dp_world()  # this rank's part of the global means
         device = next(state.generator.parameters()).device
         wav = torch.as_tensor(batch["wav"]).float().to(device, non_blocking=True)
         mel_in, mel_target = vocoder_mels(wav, mel_input, mel_loss)
@@ -190,7 +200,7 @@ def make_vocoder_train_step(mel_input: MelSpectrogram, mel_loss: MelSpectrogram 
 
         # the critics' update on the generator's output
         state.disc_optimizer.zero_grad()
-        loss_d = critic_loss(state.critics, wav, fake.detach())
+        loss_d = critic_loss(state.critics, wav, fake.detach()) * share
         loss_d.backward()
         state.disc_optimizer.step()
 
@@ -200,6 +210,7 @@ def make_vocoder_train_step(mel_input: MelSpectrogram, mel_loss: MelSpectrogram 
         state.critics.requires_grad_(False)
         try:
             losses = generator_losses(state.critics, wav, fake, mel_target, mel_loss, lambda_mel)
+            losses = {k: v * share for k, v in losses.items()}
             losses["loss_gen"].backward()
         finally:
             state.critics.requires_grad_(True)

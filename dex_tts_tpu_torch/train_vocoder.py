@@ -3,7 +3,7 @@ train_vocoder.py).
 
     python -m dex_tts_tpu_torch.train_vocoder --data ./preprocessed/LJSpeech/wav \\
         --vocoder bigvgan --steps 100000 --ckpt_dir ckpt_bigvgan [--preset esd] \\
-        [--resume] [--init_gen generator.pth] [--device cuda]
+        [--resume] [--init_gen generator.pth] [--n_devices N] [--device cuda]
 
 Trains on raw WAVs (a directory, a list of paths or a TTS filelist), both
 mels computed on the device inside the step. ``--preset`` takes the mel
@@ -13,7 +13,14 @@ without a card it raises. Checkpoints: ``<ckpt_dir>/last.pth``,
 ``step_{n}.pth`` and ``gen_last.pth`` (the generator alone, which
 `eval.evaluation.load_vocoder` serves when the preset's ``vocoder_path``
 is ``ckpt_dir``). SIGTERM/SIGINT save ``preempt.pth`` and ``last.pth``
-and stop. Data parallelism (the JAX CLI's ``--n_devices``) is not ported.
+and stop.
+
+``--n_devices N`` (N > 1) trains data-parallel over N ranks, one process
+per card started here (gloo ranks on the CPU with ``--device cpu``), or
+over the ranks torchrun started: ``--batch`` is the global batch, every
+rank draws the same seeded crops and keeps its rows, and the step equals
+the one-process step on the global batch. Rank 0 alone logs and writes
+checkpoints; the ranks agree on a preemption before each step.
 """
 
 from __future__ import annotations
@@ -24,7 +31,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from dex_tts_tpu_torch import parallel
 from dex_tts_tpu_torch.audio.stft import MelSpectrogram
 from dex_tts_tpu_torch.config import load_preset
 from dex_tts_tpu_torch.convert import fold_weight_norm, load_torch_checkpoint
@@ -67,6 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="warm-start the generator from a released torch checkpoint "
                         "(.pth/.pth.tar[.zip], weight norm folded); critics and optimizers "
                         "start fresh")
+    p.add_argument("--n_devices", type=int, default=0,
+                   help="data-parallel ranks, one per card (0 = one process)")
     p.add_argument("--device", default=None, help="default: cuda")
     return p
 
@@ -99,10 +110,30 @@ def mel_settings(args) -> dict:
                 n_mels=pre.n_mels, sample_rate=pre.sample_rate, fmin=pre.f_min, fmax=pre.f_max)
 
 
-def main(argv=None) -> VocoderTrainState:
-    """Train as the flags say → the final state."""
+def main(argv=None) -> VocoderTrainState | None:
+    """Train as the flags say → the final state (None when this call
+    started the data-parallel ranks itself)."""
     p = build_parser()
     args = p.parse_args(argv)
+    if not parallel.initialize(device=args.device) and args.n_devices > 1:
+        parallel.launch(_rank_main, args.n_devices, args=(argv,), timeout=None,
+                        devices=parallel.runtime.rank_devices(args.n_devices, args.device))
+        return None
+    return _run(p, args)
+
+
+def _rank_main(rank, argv):
+    _run(build_parser(), build_parser().parse_args(argv))
+
+
+def _run(p, args) -> VocoderTrainState:
+    mesh = None
+    if dist.is_initialized():
+        args.device = args.device or parallel.runtime.rank_device()
+        mesh = parallel.make_mesh()
+        if args.batch % mesh.dp_size:
+            p.error(f"--batch {args.batch} must divide over {mesh.dp_size} ranks")
+    writer = mesh is None or mesh.rank == 0
     mel_kw = mel_settings(args)
     n_mels = mel_kw.get("n_mels", 80)
     sample_rate = mel_kw["sample_rate"]
@@ -121,33 +152,49 @@ def main(argv=None) -> VocoderTrainState:
     data = WavSegmentDataset(wav_paths_from_source(args.data), segment=args.segment,
                              sample_rate=sample_rate, seed=args.seed,
                              cache_bytes=int(args.cache_gb * (1 << 30)))
-    print(f"{len(data)} wav files from {args.data}")
+    if writer:
+        print(f"{len(data)} wav files from {args.data}")
     state = create_vocoder_train_state(gen_cfg, DiscriminatorConfig(), lr=args.lr,
                                        lr_decay=args.lr_decay,
                                        steps_per_epoch=args.steps_per_epoch, seed=args.seed,
                                        device=args.device)
     if args.init_gen:
         warm_start_generator(state, args.init_gen)
-        print(f"generator warm start from {args.init_gen}")
+        if writer:
+            print(f"generator warm start from {args.init_gen}")
     step_fn = make_vocoder_train_step(mel, mel_l1, lambda_mel=args.lambda_mel)
 
     ckpt = VocoderCheckpoints(args.ckpt_dir)
     if args.resume and ckpt.exists("last"):
         ckpt.restore(state, "last")
-        print(f"resumed at step {state.step}")
+        if writer:
+            print(f"resumed at step {state.step}")
+    if mesh is not None:
+        parallel.replicate_state(state, mesh)
+        step_fn = parallel.make_parallel_train_step(step_fn, mesh)
+
+    def save(*tags):
+        if writer:
+            for tag in tags:
+                (ckpt.save_generator if tag == "gen_last" else ckpt.save)(state, tag)
+        if mesh is not None:
+            dist.barrier(group=mesh.cpu_group)
 
     guard = PreemptionGuard()  # SIGTERM/SIGINT → save and stop
     start = state.step
     t0, last_log = time.time(), start
     try:
         for i, batch in enumerate(data.batches(args.batch, args.steps - start), 1):
-            if guard.triggered:
-                print("preempted: saving checkpoint and exiting", flush=True)
-                ckpt.save(state, "preempt")
+            if parallel.collectives.agree_any(guard.triggered, mesh):
+                if writer:
+                    print("preempted: saving checkpoint and exiting", flush=True)
+                save("preempt")
                 break
+            if mesh is not None:  # this rank's rows of the seeded global batch
+                batch = parallel.shard_rows(batch, mesh)
             metrics = step_fn(state, batch)
             n = start + i
-            if n % args.log_every == 0:
+            if writer and n % args.log_every == 0:
                 values = torch.stack(list(metrics.values())).cpu().tolist()  # one host read
                 dt = time.time() - t0
                 rate = (n - last_log) / dt if dt > 0 else 0.0
@@ -156,12 +203,10 @@ def main(argv=None) -> VocoderTrainState:
                       flush=True)
                 t0, last_log = time.time(), n
             if n % args.save_every == 0:
-                ckpt.save(state, "last")
-                ckpt.save(state, f"step_{n}")
-                ckpt.save_generator(state, "gen_last")
-        ckpt.save(state, "last")
-        ckpt.save_generator(state, "gen_last")
-        print(f"done at step {state.step}")
+                save("last", f"step_{n}", "gen_last")
+        save("last", "gen_last")
+        if writer:
+            print(f"done at step {state.step}")
     finally:
         guard.restore()  # keep Ctrl-C working for in-process callers
     return state

@@ -50,7 +50,10 @@ def test_every_module_imports_without_jax():
             "dex_tts_tpu_torch.models.vocoder.discriminators", "dex_tts_tpu_torch.eval.speaker",
             "dex_tts_tpu_torch.preprocess", "dex_tts_tpu_torch.preprocess.preprocessor",
             "dex_tts_tpu_torch.preprocess.filelists", "dex_tts_tpu_torch.preprocess.text_frontend",
-            "dex_tts_tpu_torch.preprocess.__main__"} <= set(_modules())
+            "dex_tts_tpu_torch.preprocess.__main__", "dex_tts_tpu_torch.parallel",
+            "dex_tts_tpu_torch.parallel.collectives", "dex_tts_tpu_torch.parallel.mesh",
+            "dex_tts_tpu_torch.parallel.runtime", "dex_tts_tpu_torch.parallel.tp",
+            "dex_tts_tpu_torch.dryrun"} <= set(_modules())
 
 
 def test_source_names_no_jax_or_jax_package():
@@ -167,3 +170,46 @@ def test_eval_and_preprocess_entry_points_raise_without_cuda(monkeypatch, tmp_pa
     for make in (ASRScorer, BuiltinVoiceEncoder, lambda: SpeakerScorer(backend="random-init")):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
+
+
+def test_data_parallel_entry_points_raise_without_cuda_or_cards(monkeypatch, tmp_path):
+    """``--n_devices 2`` of `main train` and `train_vocoder`, and a rank
+    that torchrun started, raise without CUDA unless ``--device cpu`` is
+    given, and asking for more cards than there are raises, naming both
+    counts; nothing is started. The dry run starts nothing without
+    ``--device cpu``, with or without a card."""
+    from chip_smoke import write_reference_wavs
+    from dex_tts_tpu_torch import dryrun, parallel, train_vocoder
+    from dex_tts_tpu_torch import main as port_main
+
+    def no_launch(*args, **kwargs):
+        raise AssertionError("no rank may start")
+
+    monkeypatch.setattr(parallel, "launch", no_launch)
+    write_reference_wavs(str(tmp_path), 1)
+    voc = ["--data", str(tmp_path), "--steps", "1", "--ckpt_dir", str(tmp_path / "ckpt"),
+           "--n_devices", "2"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_main.main(["train", "--exp_dir", str(tmp_path / "exp"), "--n_devices", "2"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_vocoder.main(voc)
+    with pytest.raises(SystemExit):
+        dryrun.main(["2"])
+    monkeypatch.setenv("WORLD_SIZE", "2")  # as torchrun sets it
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        parallel.initialize()
+    monkeypatch.delenv("WORLD_SIZE")
+    assert port_main.data_parallel_size(32, 2, "cpu") == 2
+    assert port_main.data_parallel_size(30, 4, "cpu") == 3  # lowered until it divides
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match=r"--n_devices 2 .*device_count\(\) is 1"):
+        port_main.main(["train", "--exp_dir", str(tmp_path / "exp"), "--n_devices", "2"])
+    with pytest.raises(ValueError, match=r"--n_devices 2 .*device_count\(\) is 1"):
+        train_vocoder.main(voc)
+    assert port_main.data_parallel_size(32, None) == 1
+    with pytest.raises(SystemExit):
+        dryrun.main(["2", "--device", "cuda"])
+    assert not (tmp_path / "exp").exists() and not (tmp_path / "ckpt").exists()

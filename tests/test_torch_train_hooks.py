@@ -86,6 +86,36 @@ def test_sigterm_in_the_loader_saves_last_and_preempt(tmp_path):
     assert metrics_to_host(step(fresh, next_batch)) == metrics_to_host(step(state, next_batch))
 
 
+@pytest.mark.parametrize("epochs", [1, 3])
+def test_sigterm_during_the_last_batch_of_an_epoch(tmp_path, epochs):
+    """SIGTERM after the epoch's last poll, as its loader runs out: the
+    check after the epoch saves ``last`` and ``preempt`` at once, with no
+    validation, no per-epoch checkpoint and no later epoch, in the final
+    epoch too."""
+    cfg, state = _tiny_state(seed=4)
+    batches = [_batch(cfg, seed=s) for s in (1, 2)]
+    validated = {"n": 0}
+
+    def loader():
+        yield from batches
+        signal.raise_signal(signal.SIGTERM)
+
+    def valid_loader():
+        validated["n"] += 1
+        yield batches[0]
+
+    guard = PreemptionGuard()
+    try:
+        trainer = Trainer(state, str(tmp_path), out_size=OUT, preemption=guard)
+        trainer.fit(loader, valid_loader, epochs=epochs)
+    finally:
+        guard.restore()
+    assert state.step == 2 and validated["n"] == 0
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["last.pth", "preempt.pth"]
+    log = (tmp_path / "log.txt").read_text()
+    assert "preempted during epoch 1" in log and "epoch 1 |" not in log
+
+
 def _load_jax_main():
     spec = importlib.util.spec_from_file_location("jax_main_cli", os.path.join(REPO, "main.py"))
     module = importlib.util.module_from_spec(spec)
