@@ -118,6 +118,21 @@ Data and tensor parallelism add:
      dp2 and dp1×tp2 against one process (K1 per rank); and `main train`
      on two ranks with a resume, its checkpoint loaded by a one-process
      `load_synthesizer`.
+The model variants and the bench tooling add:
+ 12. `phase_variants`: the depth-cut DeX with the DiT's conv1d time
+     position, its decoder and decayed retention, card against CPU (a CPU
+     control with the decoder's attention zeroed outside the bound);
+     request 1 through the full-width `vctk_bench` variant beside the
+     plain model, in turns (K1 400 against 200 per call); one ESD train
+     step with the decoder under "flash_bf16" (K1 8 + 8, every
+     decoder-block gradient non-zero);
+  7. (extended) the default runs of both benches with ``--profile``
+     (their traces name `flash_fwd_bf16` and `mas_warp`), the FLOP count
+     and 0 < MFU < 1 on every bench line;
+ 13. `phase_flop_count`: `entry()`'s full-size function counted on the
+     card and on the CPU (`utils.mfu`), equal to 1e-6; the LF0 GRU's
+     forward + backward (cuDNN's fused RNN on the card) and a DiT block's
+     under flash_bf16 (K1 and its backward on the card) equal.
 The last two lines are the `kernels` JSON line and the device JSON line.
 Needs one card; exits non-zero without CUDA.
 """
@@ -903,23 +918,22 @@ def perturb_(model, seed, scale=0.02):
                 buf.copy_(0.1 * torch.randn(buf.shape, generator=g))
 
 
-def phase_card_vs_cpu():
-    """Same port, same weights and noise: CPU (plain attention) vs card
-    (kernel), f32, TF32 off."""
+def depth_cut_dex(use_decay: bool = False, **dit_overrides):
+    """The card-vs-CPU DeX: the VCTK preset with 2 text-encoder, TV and
+    TIV layers and a 1-block DiT (attention "flash", ``dit_overrides``),
+    every parameter perturbed, on the CPU and a copy on the card, and
+    inputs from a seed for 820 DiT tokens → (config, CPU model, card
+    model, run(model, device, sampler) → `synthesize`'s outputs)."""
     import copy
     import dataclasses
-    from unittest import mock
 
     from dex_tts_tpu_torch.config import load_preset
-    from dex_tts_tpu_torch.models import dit
-    from dex_tts_tpu_torch.models.edm import SamplerConfig
     from dex_tts_tpu_torch.models.tts import build_tts
-    from dex_tts_tpu_torch.ops.attention import flash_attention
 
     cfg = load_preset("vctk").model
     cfg = dataclasses.replace(
-        cfg, enc_layers=2, tv_layers=2, tiv_layers=2,
-        dit=dataclasses.replace(cfg.dit, depth=1, attention="flash"),
+        cfg, enc_layers=2, tv_layers=2, tiv_layers=2, use_decay=use_decay,
+        dit=dataclasses.replace(cfg.dit, depth=1, attention="flash", **dit_overrides),
     )
     torch.manual_seed(1)  # default init, before the perturbation
     cpu_model = build_tts(cfg)
@@ -942,6 +956,20 @@ def phase_card_vs_cpu():
                 y_max_length=y_max, sampler=sampler, temperature=1.5,
                 **{k: v.to(device) for k, v in inputs.items()},
             )
+
+    return cfg, cpu_model, gpu_model, run
+
+
+def phase_card_vs_cpu():
+    """Same port, same weights and noise: CPU (plain attention) vs card
+    (kernel), f32, TF32 off."""
+    from unittest import mock
+
+    from dex_tts_tpu_torch.models import dit
+    from dex_tts_tpu_torch.models.edm import SamplerConfig
+    from dex_tts_tpu_torch.ops.attention import flash_attention
+
+    cfg, cpu_model, gpu_model, run = depth_cut_dex()
 
     def card_vs_cpu(label, sampler, n_launches):
         want = run(cpu_model, "cpu", sampler)
@@ -1319,20 +1347,17 @@ def torch_tf32_defaults():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-def build_train_path(attention: str):
+def build_train_path(attention: str, **dit_overrides):
     """The training main path on the card: the ESD preset at full width
-    with DiT attention ``attention``, its train state (seed 100) and step,
-    and bench_train's batch → (model config, resolved attention mode,
-    state, step, batch)."""
-    import dataclasses
-
+    with DiT attention ``attention`` (and ``dit_overrides``: a DiT
+    variant), its train state (seed 100) and step, and bench_train's
+    batch → (model config, resolved attention mode, state, step, batch)."""
     from dex_tts_tpu_torch.config import build_model, load_preset
     from dex_tts_tpu_torch.models.dit import resolve_attention_mode, token_count
     from dex_tts_tpu_torch.train import create_train_state, make_train_step
 
-    preset = load_preset("esd")
-    cfg = dataclasses.replace(preset.model,
-                              dit=dataclasses.replace(preset.model.dit, attention=attention))
+    preset = with_dit(load_preset("esd"), attention=attention, **dit_overrides)
+    cfg = preset.model
     out_size = preset.out_size()
     assert out_size == TRAIN_OUT_SIZE
     mode = resolve_attention_mode(cfg.dit_config(), token_count(cfg.dit_config(), out_size // 2),
@@ -1700,16 +1725,26 @@ def phase_vocoder_train(card: str, directory: str) -> dict:
                 resume=dict(live=want, resumed=got, generator_off=gen_off))
 
 
-def build_main_path(preset_name: str = "vctk_bench"):
+def with_dit(preset, **dit_overrides):
+    """``preset`` with its DiT config changed: how a variant is reached
+    without a preset of its own (the JAX YAML's ``model.dit`` keys)."""
+    import dataclasses
+
+    model = preset.model
+    return dataclasses.replace(preset, model=dataclasses.replace(
+        model, dit=dataclasses.replace(model.dit, **dit_overrides)))
+
+
+def build_main_path(preset_name: str = "vctk_bench", **dit_overrides):
     """The benchmark's DeX (VCTK width, bf16, attention "auto") + the
     preset's vocoder (HiFi-GAN for "vctk_bench", the bf16 BigVGAN for
     "vctk_bench_bigvgan") on the card, random weights from fixed seeds →
-    (preset, Synthesizer)."""
+    (preset, Synthesizer). ``dit_overrides``: a DiT variant."""
     from dex_tts_tpu_torch.config import build_model, build_vocoder, load_preset
     from dex_tts_tpu_torch.models.edm import SamplerConfig
     from dex_tts_tpu_torch.pipeline import Synthesizer
 
-    preset = load_preset(preset_name)
+    preset = with_dit(load_preset(preset_name), **dit_overrides)
     torch.manual_seed(0)
     model = build_model(preset.model, device="cuda")
     perturb_(model, seed=3)
@@ -1810,6 +1845,129 @@ def phase_main_path(card: str, preset_name: str, refs_1: dict, refs_2: dict,
     # the options were per call: the synthesizer's own sampler is unchanged
     assert synth.sampler == SamplerConfig(num_steps=preset.n_timesteps), synth.sampler
     return dict(request_1=first, request_2_walls_s=walls, options=options)
+
+
+VARIANT = dict(pos_embed_time="conv1d", use_decoder=True)  # the DiT variants, both on
+
+
+def phase_variants(card: str) -> dict:
+    """The model variants: the DiT's conv1d time position embedding and its
+    decoder, with the text encoder's decayed retention where a config
+    reaches it.
+      (a) the depth-cut DeX of `phase_card_vs_cpu` with both DiT variants
+          and ``use_decay``, card against CPU (f32, TF32 off, 2 euler
+          steps): the mel within MEL_ATOL, K1 2 × depth × steps (encoder
+          and decoder blocks); a CPU control with the decoder blocks'
+          attention zeroed lands more than 10× outside;
+      (b) the `vctk_bench` DeX with both DiT variants through
+          `Synthesizer.tts` at request 1's shape (K1 400 per call) beside
+          the plain `vctk_bench` DeX, in turns (plain, variant, variant,
+          plain) after a warm-up each: walls and RTFs;
+      (c) one ESD train step with the decoder under "flash_bf16" (every
+          parameter perturbed, so the zero-initialised adaLN and final
+          layer pass gradients), at PyTorch's TF32 defaults: K1 8 forward
+          + 8 backward, the loss finite, every decoder-block gradient
+          non-zero.
+    → the numbers of each part."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from dex_tts_tpu_torch.models.edm import SamplerConfig
+    from dex_tts_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+    from dex_tts_tpu_torch.ops.mas import maximum_path
+    from dex_tts_tpu_torch.pipeline import SAMPLE_RATE
+    from dex_tts_tpu_torch.train.trainer import metrics_to_host
+
+    t0 = time.perf_counter()
+    cfg, cpu_model, gpu_model, run = depth_cut_dex(use_decay=True, **VARIANT)
+    euler = SamplerConfig(num_steps=2)
+    want = run(cpu_model, "cpu", euler)
+    flash_attention.launches = 0
+    got = run(gpu_model, "cuda", euler)
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    err = (got[1].cpu() - want[1]).abs().max().item()
+    with ExitStack() as stack:
+        for blk in cpu_model.decoder.denoise_fn.vit.decoder_blocks:
+            stack.enter_context(mock.patch.object(
+                blk.attn, "forward", lambda h, train=False: torch.zeros_like(h)))
+        zeroed = run(cpu_model, "cpu", euler)
+    zeroed_err = (zeroed[1] - want[1]).abs().max().item()
+    log(f"[variants a] card vs CPU (f32, depth-cut DeX, conv1d time pos + DiT decoder + decayed"
+        f" retention, 820 tokens, euler 2 steps): mel max_abs_err {err:.3e} (bound"
+        f" {MEL_ATOL:.0e}), K1 launches {launches}; decoder attention zeroed on the CPU"
+        f" {zeroed_err:.3e} off ({zeroed_err / MEL_ATOL:.1f}x the bound)")
+    assert torch.equal(got[3].cpu(), want[3]), "y_lengths differ"
+    assert launches == 2 * cfg.dit.depth * euler.num_steps, launches
+    assert math.isfinite(err) and err <= MEL_ATOL, err
+    assert zeroed_err > 10 * MEL_ATOL, zeroed_err
+    part_a = dict(mel_err=err, control_err=zeroed_err, launches=launches,
+                  wall_s=time.perf_counter() - t0)
+    del cpu_model, gpu_model
+
+    t0 = time.perf_counter()
+    refs = random_ref_feats(len(SENTENCES))
+    models = {"plain": build_main_path("vctk_bench"), "variant": build_main_path("vctk_bench",
+                                                                                **VARIANT)}
+
+    def request_1(name):
+        preset, synth = models[name]
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        start = time.perf_counter()
+        out = synth.tts(SENTENCES, temperature=preset.temperature, max_frames=768,
+                        generator=torch.Generator("cuda").manual_seed(6), ref_feats=refs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        depth = preset.model.dit.depth
+        n_dit = depth * (2 if preset.model.dit.use_decoder else 1)
+        assert flash_attention.launches == n_dit * preset.n_timesteps, flash_attention.launches
+        assert all(np.isfinite(r["wav"]).all() and np.isfinite(r["mel"]).all() for r in out)
+        audio_s = sum(r["n_frames"] for r in out) * synth.hop / SAMPLE_RATE
+        return dict(wall_s=wall, rtf=wall / audio_s, launches=flash_attention.launches,
+                    audio_s=audio_s)
+
+    for name in models:
+        request_1(name)  # warm-up
+    calls = [(name, request_1(name)) for name in ("plain", "variant", "variant", "plain")]
+    part_b = {}
+    for name in models:
+        mine = [c for n, c in calls if n == name]
+        part_b[name] = dict(walls_s=[c["wall_s"] for c in mine], rtfs=[c["rtf"] for c in mine],
+                            launches=mine[0]["launches"])
+    log(f"[variants b] request 1 (16 x long, 768-frame bucket, euler 50) through"
+        f" Synthesizer.tts, in turns plain/variant/variant/plain: plain vctk_bench walls"
+        f" {part_b['plain']['walls_s']} s, RTFs {part_b['plain']['rtfs']}, K1"
+        f" {part_b['plain']['launches']}; conv1d + decoder walls {part_b['variant']['walls_s']}"
+        f" s, RTFs {part_b['variant']['rtfs']}, K1 {part_b['variant']['launches']} [{card}]")
+    assert part_b["variant"]["launches"] == 400, part_b
+    part_b["wall_s"] = time.perf_counter() - t0
+    del models
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with torch_tf32_defaults():
+        cfg, mode, state, step, batch = build_train_path("flash_bf16", use_decoder=True)
+        perturb_(state.model, seed=23)
+        counters = (flash_attention, flash_attention_bwd, maximum_path)
+        for fn in counters:
+            fn.launches = 0
+        last = metrics_to_host(step(state, batch))
+        launches = {fn.__name__: fn.launches for fn in counters}
+    decoder = {n: p.grad for n, p in state.model.named_parameters() if ".decoder_blocks." in n}
+    zero = [n for n, g in decoder.items() if g is None or not g.abs().max().item() > 0]
+    log(f"[variants c] esd train step with the DiT decoder under {mode}: total loss"
+        f" {last['total_loss']:.6f}, launches {launches}, {len(decoder)} decoder-block"
+        f" gradients, {len(zero)} of them zero [{card}]")
+    assert mode == "flash_bf16", mode
+    assert launches == dict(flash_attention=8, flash_attention_bwd=8, maximum_path=1), launches
+    assert math.isfinite(last["total_loss"]), last
+    assert decoder and not zero, zero
+    part_c = dict(launches=launches, total_loss=last["total_loss"],
+                  wall_s=time.perf_counter() - t0)
+    del state
+    torch.cuda.empty_cache()
+    return dict(card_vs_cpu=part_a, request_1=part_b, train=part_c)
 
 
 SERVE_PRESET = "vctk_bench_from_disk"  # vctk_bench with the vocoder_path the phase writes
@@ -2775,6 +2933,81 @@ BENCH_RUNS = [
     ("dit_cache_5", ["--dit_cache", "5"], 40, 0),
     ("gedex_bigvgan", ["--family", "gedex", "--vocoder", "bigvgan"], 200, SNAKE_LAUNCHES),
 ]
+PROFILED = {"default": "flash_fwd_bf16", "train_default": "mas_warp"}  # a kernel each trace names
+
+
+def trace_kernels(directory: str) -> set:
+    """The device kernels' names in the one Chrome trace in ``directory``."""
+    (name,) = os.listdir(directory)
+    with open(os.path.join(directory, name)) as f:
+        events = json.load(f)["traceEvents"]
+    return {e["name"] for e in events if e.get("cat") == "kernel"}
+
+
+def check_mfu(label: str, line: dict, flops_key: str, mfu_keys: tuple) -> None:
+    """The FLOP count and the MFU fields of a bench line on the card."""
+    assert line[flops_key] > 0 and line["peak_tflops"] > 0, (label, line)
+    for key in mfu_keys:
+        assert line[key] is not None and 0 < line[key] < 1, (label, key, line[key])
+
+
+def phase_flop_count(card: str) -> dict:
+    """`utils.mfu` on the card against the CPU: the FLOPs of `entry()`'s
+    full-size function (8 steps) counted on the card, and on the CPU
+    extrapolated from 2 and 3 steps, agree to 1e-6 relative; the LF0
+    encoder's GRU forward + backward (cuDNN's fused RNN on the card,
+    separate products on the CPU) and a DiT block's forward + backward
+    under flash_bf16 (K1's kernels on the card, the plain version on the
+    CPU) count exactly the same."""
+    from dex_tts_tpu_torch.entry import N_STEPS, entry
+    from dex_tts_tpu_torch.utils.mfu import count_flops, extrapolated_scan_flops
+
+    t0 = time.perf_counter()
+    fn, args = entry("cuda")
+    on_card = count_flops(fn, *args)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    del fn, args
+    t0 = time.perf_counter()
+    cpu_args = entry("cpu", n_steps=2)[1]
+    on_cpu = extrapolated_scan_flops(lambda n: entry("cpu", n_steps=n)[0], N_STEPS, *cpu_args)
+    cpu_s = time.perf_counter() - t0
+    gru = torch.nn.GRU(192, 96, 2, batch_first=True, bidirectional=True)
+    x = torch.randn(2, 200, 192)
+
+    def gru_step(g, x):
+        g(x.requires_grad_(True))[0].sum().backward()
+
+    gru_cpu = count_flops(gru_step, gru, x.clone())
+    gru_card = count_flops(gru_step, gru.cuda(), x.cuda())
+    # a DiT block's forward + backward under flash_bf16 at the train step's
+    # 880 tokens: K1 and its backward (counted where they launch, the
+    # backward on autograd's device thread) against the plain version
+    from dex_tts_tpu_torch.models.dit import DiTBlock, DiTConfig
+    from dex_tts_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+
+    torch.manual_seed(0)
+    block = DiTBlock(DiTConfig(hidden_size=256, num_heads=2, attention="flash_bf16",
+                               dtype="bfloat16"))
+    tokens, cond = torch.randn(2, 880, 256), torch.randn(2, 256)
+
+    def block_step(blk, x, c):
+        blk(x.requires_grad_(True), c, train=True).float().sum().backward()
+
+    block_cpu = count_flops(block_step, block, tokens.clone(), cond)
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    block_card = count_flops(block_step, block.cuda(), tokens.cuda(), cond.cuda())
+    k1 = (flash_attention.launches, flash_attention_bwd.launches)
+    rel = abs(on_card - on_cpu) / on_cpu
+    log(f"[flop count] entry() ({N_STEPS} steps): card {on_card} FLOPs ({card_s:.1f} s), CPU"
+        f" {on_cpu} (from 2 and 3 steps, {cpu_s:.1f} s): relative difference {rel:.3e}; LF0 GRU"
+        f" forward + backward card {gru_card}, CPU {gru_cpu}; DiT block forward + backward"
+        f" (flash_bf16, 880 tokens) card {block_card} (K1 launches {k1}), CPU {block_cpu} [{card}]")
+    assert rel <= 1e-6, (on_card, on_cpu)
+    assert gru_card == gru_cpu, (gru_card, gru_cpu)
+    assert k1 == (1, 1) and block_card == block_cpu, (k1, block_card, block_cpu)
+    return dict(entry_card=on_card, entry_cpu=on_cpu, rel=rel, gru=gru_card, block=block_card,
+                card_s=card_s, cpu_s=cpu_s)
 
 
 def phase_bench(card: str) -> dict:
@@ -2782,25 +3015,37 @@ def phase_bench(card: str) -> dict:
     dex_tts_tpu_torch.bench ...` and `python -m dex_tts_tpu_torch.bench_train`
     run them: each JSON line logged behind its label (so that the kernels
     and device lines stay the only bare JSON lines), the launches of one
-    timed call (of the timed train steps) asserted. → {label: JSON line}."""
+    timed call (of the timed train steps) asserted, the FLOP count and
+    0 < MFU < 1 on every line; the default runs of both with ``--profile``,
+    whose traces must name a kernel each (`PROFILED`). → {label: JSON line}."""
+    import tempfile
+
     from dex_tts_tpu_torch import bench, bench_train
 
     lines = {}
     for label, argv, k1, k2 in BENCH_RUNS:
-        with contextlib.redirect_stdout(io.StringIO()):
-            line = bench.main(argv)
+        with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+            line = bench.main(argv + (["--profile", tmp] if label in PROFILED else []))
+            if label in PROFILED:
+                kernels = trace_kernels(tmp)
+                assert any(PROFILED[label] in k for k in kernels), (label, sorted(kernels))
         log(f"[bench {label}] {json.dumps(line)}")
         assert line["launches"] == {"flash_attention": k1, "snake": k2}, (label, line["launches"])
         assert math.isfinite(line["value"]) and line["card"] == card, line
+        check_mfu(label, line, "tflops_per_dispatch", ("mfu", "mfu_text_to_mel"))
         lines[label] = line
         torch.cuda.empty_cache()
-    with contextlib.redirect_stdout(io.StringIO()):
-        line = bench_train.main([])
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+        line = bench_train.main(["--profile", tmp])
+        kernels = trace_kernels(tmp)
     log(f"[bench_train default] {json.dumps(line)}")
+    assert any(PROFILED["train_default"] in k for k in kernels), sorted(kernels)
+    log(f"[bench --profile] the traces name {PROFILED} among their device kernels")
     steps = bench_train.parse_args([]).steps
     assert line["launches"] == dict(flash_attention=0, flash_attention_bwd=0,
                                     maximum_path=steps), line["launches"]
     assert math.isfinite(line["final_loss"]) and line["card"] == card, line
+    check_mfu("train_default", line, "tflops_per_step", ("mfu",))
     lines["train_default"] = line
     torch.cuda.empty_cache()
     return lines
@@ -2867,8 +3112,16 @@ def main():
         served = phase_serve(card, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         evaluated = phase_eval(card, tmp)
+    walls = {}
+    t0 = time.perf_counter()
+    variants = phase_variants(card)
+    walls["variants"] = time.perf_counter() - t0
     with torch_tf32_defaults():
         benches = phase_bench(card)
+    walls["bench"] = time.perf_counter() - t0 - walls["variants"]
+    flop_count = phase_flop_count(card)
+    walls["flop_count"] = time.perf_counter() - t0 - walls["variants"] - walls["bench"]
+    log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     with tempfile.TemporaryDirectory() as tmp:
         parallel_run = phase_parallel(card, tmp)
     par = parallel_run["launches"]
@@ -2877,7 +3130,9 @@ def main():
              **served["launches"], **evaluated["launches"],
              **{f"bench_{run[0]}": benches[run[0]]["launches"] for run in BENCH_RUNS}}
     train_launches = {**{f"train_{k}": v["launches"] for k, v in train.items()},
-                      "bench_train": benches["train_default"]["launches"], **served["launches"]}
+                      "bench_train": benches["train_default"]["launches"],
+                      "variant_train_flash_bf16": variants["train"]["launches"],
+                      **served["launches"]}
 
     bf16, f32 = report[torch.bfloat16], report[torch.float32]
     sb, sf = snake[torch.bfloat16], snake[torch.float32]
@@ -2896,6 +3151,9 @@ def main():
                              "trainer_fit": fit["fit_flash_launches"],
                              "trainer_fit_synthesis": sum(c["flash_attention"]
                                                           for c in fit["synthesis"]),
+                             # the DiT variants (conv1d time position + decoder)
+                             "variant_request_1": variants["request_1"]["variant"]["launches"],
+                             "variant_card_vs_cpu": variants["card_vs_cpu"]["launches"],
                              **par["flash_attention"]},
         "max_abs_err": bf16["max_abs_err"],
         "ms": bf16["ms"],
@@ -3023,7 +3281,15 @@ def main():
     log("port bench: e2e RTF " + ", ".join(f"{k} {v['value']}" for k, v in benches.items()
                                           if k != "train_default")
         + f"; train {benches['train_default']['value']} steps/s, peak"
-        f" {benches['train_default']['peak_mem_gib']:.3f} GiB [{card}]")
+        f" {benches['train_default']['peak_mem_gib']:.3f} GiB; MFU "
+        + ", ".join(f"{k} {v['mfu']:.6f}" for k, v in benches.items())
+        + f"; entry() FLOPs card vs CPU {flop_count['rel']:.3e} relative [{card}]")
+    vb = variants["request_1"]
+    log(f"variants: card vs CPU mel {variants['card_vs_cpu']['mel_err']:.3e} (control"
+        f" {variants['card_vs_cpu']['control_err']:.3e}); request 1 RTF plain"
+        f" {vb['plain']['rtfs']}, conv1d + decoder {vb['variant']['rtfs']} (K1"
+        f" {vb['plain']['launches']} / {vb['variant']['launches']}); decoder train step K1"
+        f" {variants['train']['launches']}, loss {variants['train']['total_loss']:.6f} [{card}]")
     log("parallel (two gloo ranks on one card): esd DP step vs one process worst error/bound "
         + ", ".join(f"{k} {v['grad_ratio'][0]:.3e} (plain DDP {v['ddp_grad_ratio'][0]:.3e})"
                     for k, v in parallel_run["train"].items())

@@ -3,7 +3,8 @@
 
     python -m dex_tts_tpu_torch.bench [--vocoder hifigan|bigvgan]
         [--family dex|gedex] [--batch 16] [--solver euler|heun|dpmpp2m]
-        [--steps 50] [--dit_cache 1] [--vocoder_dtype auto] [--device cuda]
+        [--steps 50] [--dit_cache 1] [--vocoder_dtype auto] [--profile DIR]
+        [--device cuda]
 
 Prints ONE JSON line with bench.py's keys. The model is the benchmark's
 (`vctk_bench` DeX or `gedex_bench` GeDEX, bf16) with HiFi-GAN or BigVGAN,
@@ -14,7 +15,12 @@ b × 96 tokens from bench.py's seed, every item at the 768-frame bucket
 features. Each of text→mel and text→WAV is timed as bench.py's `time_fn`
 does: one warm-up call, then the mean of 3, each ending with a host read
 of the output's sum. ``vs_baseline`` is null: BASELINE.md's 0.02 is a TPU
-target. The FLOP and MFU fields are null until the port counts FLOPs.
+target. After the timed calls, ``--profile DIR`` traces one text→WAV call
+into DIR (`utils.profiling.trace`), and the FLOPs are counted once
+(`utils.mfu`: matrix products and convolutions, the text→mel loop
+extrapolated from runs of two and three sampler units, plus one vocoder
+call): ``tflops_per_dispatch`` and, on a card with a known peak, ``mfu``,
+``mfu_text_to_mel`` and ``peak_tflops``.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ from dex_tts_tpu_torch.models.vocoder import BigVGANConfig, HiFiGANConfig
 from dex_tts_tpu_torch.ops.attention import flash_attention
 from dex_tts_tpu_torch.ops.snake import snake_antialias
 from dex_tts_tpu_torch.utils.device import card_line, resolve_device
+from dex_tts_tpu_torch.utils.mfu import count_flops, extrapolated_scan_flops, mfu, peak_flops_per_chip
+from dex_tts_tpu_torch.utils.profiling import trace
 
 SAMPLE_RATE = 22050
 HOP = 256
@@ -63,6 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--conv_impl", default="auto", choices=["auto", "plain", "packed"])
     p.add_argument("--vocoder_dtype", default="auto", choices=["auto", "float32", "bfloat16"],
                    help="'auto': bfloat16 for BigVGAN, float32 for HiFi-GAN")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="trace one timed text-to-WAV call into DIR (torch.profiler, Chrome trace)")
     p.add_argument("--device", default="cuda", help="'cpu' runs on the CPU (no card numbers)")
     return p
 
@@ -142,15 +152,20 @@ def main(argv=None) -> dict:
     vocoder = build_vocoder(vocoder_config(args), device=device)
     inputs = {k: torch.from_numpy(v).to(device) for k, v in bench_inputs(b, args.family).items()}
     inputs = {k: v.long() if k.endswith("lengths") or k == "x" else v for k, v in inputs.items()}
-    sampler = SamplerConfig(num_steps=args.steps, solver=args.solver,
-                            dit_cache_interval=args.dit_cache)
 
-    @torch.no_grad()
-    def text_to_mel():
-        return model.synthesize(
-            y_max_length=TY, sampler=sampler, temperature=TEMPERATURE, length_scale=1.0,
-            generator=torch.Generator(device).manual_seed(4), **inputs,
-        )[1]
+    def text_to_mel_at(steps):
+        sampler = SamplerConfig(num_steps=steps, solver=args.solver,
+                                dit_cache_interval=args.dit_cache)
+
+        @torch.no_grad()
+        def text_to_mel():
+            return model.synthesize(
+                y_max_length=TY, sampler=sampler, temperature=TEMPERATURE, length_scale=1.0,
+                generator=torch.Generator(device).manual_seed(4), **inputs,
+            )[1]
+        return text_to_mel
+
+    text_to_mel = text_to_mel_at(args.steps)
 
     @torch.no_grad()
     def text_to_wav():
@@ -160,6 +175,14 @@ def main(argv=None) -> dict:
     mel_s, _ = time_call(text_to_mel)
     wav_s, launches = time_call(text_to_wav)
     rtf_mel, rtf_e2e = mel_s / audio_seconds, wav_s / audio_seconds
+    if args.profile:
+        with trace(args.profile):
+            float(text_to_wav().float().sum())
+    # the DiT cache repeats in chunks of k steps
+    flops_mel = extrapolated_scan_flops(text_to_mel_at, args.steps, unit=args.dit_cache)
+    with torch.no_grad():
+        flops_e2e = flops_mel + count_flops(vocoder, text_to_mel())
+    peak = peak_flops_per_chip(device)
     line = {
         "metric": (
             f"end-to-end {args.family} text-to-WAV synthesis RTF on one card"
@@ -171,10 +194,10 @@ def main(argv=None) -> dict:
         "vs_baseline": None,  # BASELINE.md's 0.02 is a TPU v5e target
         "text_to_mel_rtf": round(rtf_mel, 6),
         "vocoder_overhead_rtf": round(rtf_e2e - rtf_mel, 6),
-        "tflops_per_dispatch": None,
-        "mfu": None,
-        "mfu_text_to_mel": None,
-        "peak_tflops": None,
+        "tflops_per_dispatch": flops_e2e / 1e12,
+        "mfu": mfu(flops_e2e, wav_s, device),
+        "mfu_text_to_mel": mfu(flops_mel, mel_s, device),
+        "peak_tflops": peak / 1e12 if peak else None,
         "device": device.type,
         "card": card_line() if device.type == "cuda" else None,
         "launches": launches,

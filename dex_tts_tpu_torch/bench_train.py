@@ -2,13 +2,18 @@
 ESD preset on one card (counterpart of the repo's bench_train.py).
 
     python -m dex_tts_tpu_torch.bench_train [--batch 32] [--frames 256]
-        [--steps 20] [--dtype float32] [--attention flash_bf16] [--device cuda]
+        [--steps 20] [--dtype float32] [--attention flash_bf16] [--profile DIR]
+        [--device cuda]
 
 Prints ONE JSON line with bench_train.py's keys, plus ``peak_mem_gib``,
 ``card`` and the kernel launches of the timed steps: one warm-up step, then ``--steps`` steps through
 `make_train_step` and one host read at the end, on bench_train.py's
-synthetic batch. The FLOP and MFU fields are null until the port counts
-FLOPs.
+synthetic batch. After them, ``--profile DIR`` traces 3 steps into DIR
+(`utils.profiling.trace`), and one more step is counted (`utils.mfu`:
+the forward's and the backward's matrix products and convolutions; the
+clip, Adam and EMA updates are elementwise and count 0):
+``tflops_per_step`` and, on a card with a known peak, ``mfu`` and
+``peak_tflops``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from dex_tts_tpu_torch.ops.mas import maximum_path
 from dex_tts_tpu_torch.train import create_train_state, make_train_step
 from dex_tts_tpu_torch.train.trainer import metrics_to_host
 from dex_tts_tpu_torch.utils.device import card_line, resolve_device
+from dex_tts_tpu_torch.utils.mfu import count_flops, mfu, peak_flops_per_chip
+from dex_tts_tpu_torch.utils.profiling import trace
 
 
 def synthetic_batch(b: int = 32, frames: int = 256, n_feats: int = 80, tx: int = 96) -> dict:
@@ -50,6 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
                    help="denoiser compute dtype")
     p.add_argument("--attention", default=None, help="DiT attention override (e.g. flash_bf16)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="trace 3 steps after the timed ones into DIR (torch.profiler, Chrome"
+                        " trace)")
     p.add_argument("--device", default="cuda", help="'cpu' runs on the CPU (no card numbers)")
     return p
 
@@ -88,6 +98,14 @@ def main(argv=None) -> dict:
     elapsed = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
     steps_per_sec = args.steps / elapsed
+    peak_mem = torch.cuda.max_memory_allocated(device) / 2**30 if on_card else None
+    if args.profile:
+        with trace(args.profile):
+            for _ in range(3):
+                metrics = step(state, batch)
+            metrics_to_host(metrics)
+    flops_step = count_flops(lambda: metrics_to_host(step(state, batch)))
+    peak = peak_flops_per_chip(device)
     line = {
         "metric": (
             f"DeX-TTS ESD train step throughput (batch {args.batch}, {args.frames}-frame bucket,"
@@ -99,10 +117,10 @@ def main(argv=None) -> dict:
         "final_loss": round(total, 4),
         "n_devices": 1,  # the step runs on one device
         "compute_dtype": args.dtype,
-        "tflops_per_step": None,
-        "mfu": None,
-        "peak_tflops": None,
-        "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30 if on_card else None,
+        "tflops_per_step": flops_step / 1e12,
+        "mfu": mfu(flops_step, elapsed / args.steps, device),
+        "peak_tflops": peak / 1e12 if peak else None,
+        "peak_mem_gib": peak_mem,
         "device": device.type,
         "card": card_line() if on_card else None,
         "launches": launches,

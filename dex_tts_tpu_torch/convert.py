@@ -163,7 +163,12 @@ def _dit(out, p, prefix, depth, use_decoder=False):
     _conv2d(out, p["x_embedder"]["pw_conv"], f"{prefix}.x_embedder.proj.2")
     _dense(out, p["t_embedder"]["fc1"], f"{prefix}.t_embedder.mlp.0")
     _dense(out, p["t_embedder"]["fc2"], f"{prefix}.t_embedder.mlp.2")
-    _conv2d(out, p["time_pos"]["pos_conv"], f"{prefix}.pos_conv.0")
+    if "pos_conv1d" in p["time_pos"]:
+        # pos_embed_time="conv1d": no reference layout (the JAX export has no
+        # such case); the port's Conv1d in the same (out, in/groups, k) layout
+        _conv1d(out, p["time_pos"]["pos_conv1d"], f"{prefix}.pos_conv1d.0")
+    else:
+        _conv2d(out, p["time_pos"]["pos_conv"], f"{prefix}.pos_conv.0")
     out[f"{prefix}.freq_new_pos_embed"] = np.transpose(
         _np(p["freq_pos_embed"]), (0, 3, 1, 2)
     )
@@ -245,6 +250,31 @@ def denoiser_flax_to_torch(
     _dit(out, dec["dit"], f"{d}.vit", dit_depth, use_decoder=dit_use_decoder)
 
 
+def retnet_flax_to_torch(retnet: dict, out: dict, prefix: str, num_layers: int,
+                        use_adaln: bool) -> None:
+    """A JAX `RetNetEncoder`'s params → the port's `RetNetEncoder` under
+    ``prefix`` (the text encoder's is ``encoder.encoder``)."""
+    out[f"{prefix}.layer_norm.weight"] = _np(retnet["norm"]["weight"])
+    for i in range(num_layers):
+        base = f"{prefix}.layers.{i}"
+        layer = retnet[f"layer_{i}"]
+        out[f"{base}.retention_layer_norm.weight"] = _np(
+            layer["retention_norm"]["weight"]
+        )
+        out[f"{base}.final_layer_norm.weight"] = _np(
+            layer["final_norm"]["weight"]
+        )
+        for p_name in ("q", "k", "v", "g", "out"):
+            _dense(out, layer["retention"][f"{p_name}_proj"],
+                   f"{base}.retention.{p_name}_proj")
+        for f_name in ("gate", "fc1", "fc2"):
+            _dense(out, layer["ffn"][f_name], f"{base}.ffn.{f_name}")
+        if use_adaln:
+            for a in ("adaln_1", "adaln_2"):
+                _dense(out, layer[a]["W_scale"], f"{base}.{a}.W_scale")
+                _dense(out, layer[a]["W_bias"], f"{base}.{a}.W_bias")
+
+
 def dex_tts_flax_to_torch(variables: dict, model) -> dict:
     """Flax variables {params[, batch_stats, vq_stats]} of a DeXTTS/GeDEXTTS
     facade → flat reference-named torch state_dict (numpy arrays).
@@ -267,26 +297,7 @@ def dex_tts_flax_to_torch(variables: dict, model) -> dict:
         _channel_ln(out, enc["prenet"][f"norm_{i}"],
                     f"encoder.prenet.norm_layers.{i}")
 
-    retnet = enc["encoder"]
-    out["encoder.encoder.layer_norm.weight"] = _np(retnet["norm"]["weight"])
-    for i in range(model.enc_layers):
-        base = f"encoder.encoder.layers.{i}"
-        layer = retnet[f"layer_{i}"]
-        out[f"{base}.retention_layer_norm.weight"] = _np(
-            layer["retention_norm"]["weight"]
-        )
-        out[f"{base}.final_layer_norm.weight"] = _np(
-            layer["final_norm"]["weight"]
-        )
-        for p_name in ("q", "k", "v", "g", "out"):
-            _dense(out, layer["retention"][f"{p_name}_proj"],
-                   f"{base}.retention.{p_name}_proj")
-        for f_name in ("gate", "fc1", "fc2"):
-            _dense(out, layer["ffn"][f_name], f"{base}.ffn.{f_name}")
-        if use_style:
-            for a in ("adaln_1", "adaln_2"):
-                _dense(out, layer[a]["W_scale"], f"{base}.{a}.W_scale")
-                _dense(out, layer[a]["W_bias"], f"{base}.{a}.W_bias")
+    retnet_flax_to_torch(enc["encoder"], out, "encoder.encoder", model.enc_layers, use_style)
     _dense_to_conv1x1(out, enc["proj_m"], "encoder.proj_m")
     _projection(out, enc["proj_w"], "encoder.proj_w")
 

@@ -14,6 +14,13 @@ tensors in the compute dtype; with grad
 enabled the kernel runs under its autograd Function, whose backward is
 the kernel's backward. In train mode with ``mask_ratio`` > 0 the DiT
 keeps a random subset of tokens (MAE-style, reference: dit.py:139-212).
+
+Two variants, off in every preset, as in the JAX package: the time
+position embedding ``pos_embed_time="conv1d"`` (the mean over frequency
+first, then a grouped 1-D conv over time: different math from the
+reference's conv2d, so a conv2d state dict does not load into it), and
+``use_decoder``, a token position conv and ``depth`` more blocks over the
+whole token sequence after the masked tokens are put back.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from dex_tts_tpu_torch.models.layers import TimestepEmbedder, run_in, train_unif
 from dex_tts_tpu_torch.ops.attention import flash_attention_qkv
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+POS_EMBED_TIME = ("conv2d", "conv1d")
 
 
 @dataclass(frozen=True)
@@ -38,10 +46,8 @@ class DiTConfig:
     LayerNorm and softmax statistics stay float32). ``pos_conv_impl``,
     ``flash_block_q`` and ``flash_block_k`` only choose a TPU lowering of
     the same math: they are accepted and ignored here, every value maps to
-    one implementation. ``pos_embed_time`` must be "conv2d" and
-    ``use_decoder`` False in this port (the variants are not ported yet).
-    ``auto_flash_min_tokens`` keeps the JAX default so that mode selection
-    matches; it has not been re-measured on the H100.
+    one implementation. ``auto_flash_min_tokens`` keeps the JAX default so
+    that mode selection matches; it has not been re-measured on the H100.
     """
 
     in_channels: int = 128
@@ -210,10 +216,8 @@ class DiT(nn.Module):
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
-        if cfg.pos_embed_time != "conv2d" or cfg.use_decoder:
-            raise NotImplementedError(
-                "only pos_embed_time='conv2d' without the DiT decoder is ported"
-            )
+        if cfg.pos_embed_time not in POS_EMBED_TIME:
+            raise ValueError(f"pos_embed_time={cfg.pos_embed_time!r} not in {POS_EMBED_TIME}")
         self.cfg = cfg
         c, d, p, k = cfg.in_channels, cfg.hidden_size, cfg.patch_size, cfg.conv_pos
         stride = cfg.stride_size if cfg.overlap else p
@@ -229,11 +233,37 @@ class DiT(nn.Module):
         self.freq_new_pos_embed = nn.Parameter(torch.zeros(1, d, cfg.grid_h, 1))
         # k//2 padding both sides, then SamePad trims one trailing element
         # per dim for even k (the JAX package's (k//2, k//2 - 1) padding)
-        self.pos_conv = nn.Sequential(
-            nn.Conv2d(d, d, k, padding=k // 2, groups=cfg.conv_pos_groups)
-        )
+        if cfg.pos_embed_time == "conv1d":
+            self.pos_conv1d = nn.Sequential(
+                nn.Conv1d(d, d, k, padding=k // 2, groups=cfg.conv_pos_groups)
+            )
+        else:
+            self.pos_conv = nn.Sequential(
+                nn.Conv2d(d, d, k, padding=k // 2, groups=cfg.conv_pos_groups)
+            )
         self.blocks = nn.ModuleList(DiTBlock(cfg) for _ in range(cfg.depth))
+        if cfg.use_decoder:
+            self.decoder_pos_conv = nn.Sequential(
+                nn.Conv1d(d, d, k, padding=k // 2, groups=cfg.conv_pos_groups)
+            )
+            self.decoder_blocks = nn.ModuleList(DiTBlock(cfg) for _ in range(cfg.depth))
         self.final_layer = FinalLayer(cfg)
+
+    def _same_pad_conv(self, conv, x):
+        """``conv`` in the compute dtype, its trailing output trimmed in every
+        spatial dim for an even kernel (SamePad), then the exact gelu."""
+        y = run_in(conv, x, self.cfg.compute_dtype)
+        if self.cfg.conv_pos % 2 == 0:
+            y = y[(...,) + (slice(None, -1),) * (y.dim() - 2)]
+        return F.gelu(y)
+
+    def time_pos(self, x):
+        """(B, D, H', W') patches → the time position embedding (B, D, 1,
+        W'), broadcast over frequency. reference: dit.py:75-90,444-447;
+        JAX dit.py:234-281."""
+        if self.cfg.pos_embed_time == "conv1d":
+            return self._same_pad_conv(self.pos_conv1d[0], x.mean(dim=2))[:, :, None, :]
+        return self._same_pad_conv(self.pos_conv[0], x).mean(dim=2, keepdim=True)
 
     def forward(self, x, mask, t, train: bool = False, mask_ratio: float = 0.0):
         """x: (B, C, H, W) mid feature; mask: (B, 1, 1, W) binary; t: (B,)
@@ -248,11 +278,7 @@ class DiT(nn.Module):
         hp, wp = x.shape[2], x.shape[3]
         t_emb = self.t_embedder(t)
 
-        pos = run_in(self.pos_conv[0], x, dt)
-        if cfg.conv_pos % 2 == 0:
-            pos = pos[:, :, :-1, :-1]
-        pos = F.gelu(pos).mean(dim=2, keepdim=True)
-        x = x + pos[:, :, :, :wp].to(x.dtype)
+        x = x + self.time_pos(x)[:, :, :, :wp].to(x.dtype)
         x = x + self.freq_new_pos_embed.to(x.dtype)
         tokens = x.flatten(2).transpose(1, 2)  # (B, H'·W', D), freq-major
         n_tokens = tokens.shape[1]
@@ -268,6 +294,14 @@ class DiT(nn.Module):
             filler = tokens.new_zeros((b, n_tokens - tokens.shape[1], tokens.shape[2]))
             tokens = torch.cat([tokens, filler], dim=1)
             tokens = torch.gather(tokens, 1, ids_restore[:, :, None].expand(-1, -1, tokens.shape[2]))
+        if cfg.use_decoder:
+            # the decoder over the whole token sequence: a grouped conv over
+            # the tokens, gelu, the mean over channels (B, N, 1) added to
+            # every channel (reference: dit.py:466-477,505-506)
+            pos = self._same_pad_conv(self.decoder_pos_conv[0], tokens.transpose(1, 2))
+            tokens = tokens + pos.mean(dim=1)[:, :, None].to(tokens.dtype)
+            for blk in self.decoder_blocks:
+                tokens = blk(tokens, t_emb, train)
         out = self.final_layer(tokens, t_emb)  # (B, N, s²·C)
 
         s = cfg.stride_size

@@ -46,6 +46,7 @@ class TextEncoder(nn.Module):
         self.encoder = RetNetEncoder(
             RetNetEncoderConfig(
                 embed_dim=width,
+                value_dim=width,
                 ffn_dim=filter_channels,
                 num_layers=n_layers,
                 num_heads=n_heads,

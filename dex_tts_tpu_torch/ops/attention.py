@@ -18,6 +18,8 @@ import functools
 
 import torch
 
+from dex_tts_tpu_torch.utils.mfu import note_kernel_flops
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 128
 
@@ -59,6 +61,14 @@ def attention_bwd_reference(q, k, v, o, lse, do, scale: float):
     dk = torch.einsum("bhts,bthd->bshd", ds, qf) * scale
     dq = torch.einsum("bhts,bshd->bthd", ds, kf) * scale
     return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def attention_flops(b: int, t: int, h: int, hd: int) -> int:
+    """FLOPs of one forward by the port's convention (utils/mfu.py): the
+    products S = Q·Kᵀ and O = P·V, 2·B·H·T²·hd each. A backward counts
+    twice this (dV, dP, dQ, dK), as autograd through the plain version
+    does."""
+    return 4 * b * h * t * t * hd
 
 
 def attention_delta(o, do):
@@ -161,6 +171,7 @@ def flash_attention(q, k, v, scale: float, with_lse: bool = False):
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1
     flash_attention.launches_by_dtype[q.dtype] += 1
+    note_kernel_flops(out, attention_flops(b, t, h, hd))
     return (out, lse) if with_lse else out
 
 
@@ -212,6 +223,7 @@ def flash_attention_bwd(q, k, v, do, lse, delta, dq, dk, dv, scale: float):
     if err:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {err}")
     flash_attention_bwd.launches += 1
+    note_kernel_flops(dq, 2 * attention_flops(b, t, h, hd))
 
 
 flash_attention_bwd.launches = 0

@@ -35,6 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dex_tts_tpu_torch.utils.mfu import note_kernel_flops
+
 IMPLS = ("auto", "polyphase", "fold", "foldb", "pallas")
 # the JAX routes that reach the fold kernel, which uses the polynomial
 # sin² for bf16 storage (dex_tts_tpu/ops/snake.py:443-449, :647-648)
@@ -152,6 +154,14 @@ def snake_antialias_reference(x, alpha, inv_beta, kernel_size: int = 12,
     return y.to(x.dtype).transpose(1, 2)
 
 
+def snake_flops(b: int, t: int, c: int, kernel_size: int = 12) -> int:
+    """FLOPs of one call by the port's convention (utils/mfu.py): the
+    plain version's four depthwise filters (the two phases of the
+    upsampler, the two of the decimator), each k/2 taps over T outputs of
+    every (b, c) row, 2 per tap."""
+    return 4 * b * c * t * kernel_size
+
+
 def _bind(lib: ctypes.CDLL):
     """The C entry point of a built snake.cu, with its signature."""
     fn = lib.snake_antialias_fwd
@@ -210,6 +220,7 @@ def _launch(x, alpha, inv_beta, kernel_size: int, fast_sin: bool):
         # 1 is also the launcher's refusal of a grid beyond its limits
         raise RuntimeError(f"snake_antialias launch failed: CUDA error {err}")
     snake_antialias.launches += 1
+    note_kernel_flops(y, snake_flops(b, t, c, kernel_size))
     return y
 
 

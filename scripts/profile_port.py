@@ -4,6 +4,7 @@
     python3 scripts/profile_port.py            # synthesis
     python3 scripts/profile_port.py --train    # training
     python3 scripts/profile_port.py --vocoder  # vocoder GAN training
+    python3 scripts/profile_port.py --variant  # the DiT variant's request 1
 
 Builds both of chip_smoke's main paths with chip_smoke.build_main_path
 (the benchmark DeX at VCTK width, bf16, attention "auto", random weights,
@@ -26,7 +27,9 @@ and two traced. With ``--vocoder`` it profiles the vocoder GAN train
 step the same way, as `python -m dex_tts_tpu_torch.train_vocoder` runs it
 at its defaults (f32 BigVGAN, then HiFi-GAN, with the MPD/MRD critics,
 16 × 8192 samples cut from chip_smoke's reference WAVs, PyTorch's TF32
-defaults).
+defaults). With ``--variant`` it profiles request 1 through the
+`vctk_bench` DeX + HiFi-GAN twice, plain and with chip_smoke.VARIANT (the
+DiT's conv1d time position and its decoder), as above.
 Prints one JSON line last. Needs a card.
 """
 
@@ -220,6 +223,8 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--train", action="store_true", help="profile the training main path")
     p.add_argument("--vocoder", action="store_true", help="profile vocoder GAN training")
+    p.add_argument("--variant", action="store_true",
+                   help="profile request 1 of the plain DeX and of its DiT variant")
     args = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_port: CUDA is not available")
@@ -241,6 +246,18 @@ def main():
         return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.variant:
+        refs = {"ref_feats": chip_smoke.random_ref_feats(16)}
+        for label, overrides in (("plain", {}), ("conv1d + decoder", chip_smoke.VARIANT)):
+            preset, synth = chip_smoke.build_main_path("vctk_bench", **overrides)
+            print(f"== vctk_bench {label}, 16 x long [{card}]")
+            report["paths"][f"vctk_bench {label}"] = {
+                "16 x long": profile_request(preset, synth, chip_smoke.SENTENCES, refs)}
+            del synth
+            torch.cuda.empty_cache()
+        report["nvidia_smi"] = nvidia_smi()
+        print(json.dumps(report))
+        return
     with tempfile.TemporaryDirectory() as tmp:
         wavs = chip_smoke.write_reference_wavs(tmp, 16)
         for preset_name, refs_1, refs_2 in (

@@ -24,8 +24,7 @@ from dex_tts_tpu_torch.models.vocoder import HiFiGANConfig  # noqa: E402
 from tests.torch_port_util import tiny_cfg  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# flags of the JAX benches that wait for the port's profiler (ROADMAP item 9)
-NOT_PORTED = {"help", "profile"}
+NOT_PORTED = {"help"}
 
 
 class _Parsed(Exception):
@@ -154,34 +153,42 @@ TINY_VOC = dict(num_mels=80, upsample_rates=(8, 8, 4), upsample_kernel_sizes=(16
     ["--batch", "2", "--steps", "4", "--dit_cache", "2", "--family", "gedex"],
     ["--batch", "2", "--steps", "3", "--solver", "dpmpp2m"],
 ], ids=["euler", "gedex_dit_cache", "dpmpp2m"])
-def test_bench_line_on_cpu(argv, monkeypatch, capsys):
+def test_bench_line_on_cpu(argv, monkeypatch, capsys, tmp_path):
     """A tiny model at an 80-band width through the bench on the CPU
-    (asked for): one JSON line holding every key of bench.py's line."""
+    (asked for), tracing into ``--profile``: one JSON line holding every
+    key of bench.py's line, the FLOP count filled and the MFU fields null
+    (no card, no peak)."""
     models = {"vctk_bench": tiny_cfg(n_feats=80),
               "gedex_bench": tiny_cfg(n_feats=80, use_style=False)}
     monkeypatch.setattr(bench, "load_preset", lambda name: Preset(model=models[name]))
     monkeypatch.setattr(bench, "vocoder_config", lambda args: HiFiGANConfig(**TINY_VOC))
     monkeypatch.setattr(bench, "TY", 32)
-    line = bench.main([*argv, "--device", "cpu"])
+    line = bench.main([*argv, "--device", "cpu", "--profile", str(tmp_path)])
     printed = capsys.readouterr().out.strip().splitlines()
     assert len(printed) == 1 and printed[0].startswith("{")
     assert json_keys(os.path.join(REPO, "bench.py")) <= set(line)
     assert line["device"] == "cpu" and line["card"] is None and line["vs_baseline"] is None
     assert line["launches"] == {"flash_attention": 0, "snake": 0}  # kernels launch on CUDA only
     assert line["value"] > 0 and np.isfinite(line["text_to_mel_rtf"])
+    assert line["tflops_per_dispatch"] > 0
+    assert line["mfu"] is line["mfu_text_to_mel"] is line["peak_tflops"] is None
+    assert [p.suffix for p in tmp_path.iterdir()] == [".json"]
 
 
-def test_bench_train_line_on_cpu(monkeypatch, capsys):
+def test_bench_train_line_on_cpu(monkeypatch, capsys, tmp_path):
     esd = load_preset("esd")
     monkeypatch.setattr(bench_train, "load_preset",
                         lambda name: dataclasses.replace(esd, model=tiny_cfg(n_feats=80)))
-    line = bench_train.main(["--batch", "2", "--frames", "32", "--steps", "1", "--device", "cpu"])
+    line = bench_train.main(["--batch", "2", "--frames", "32", "--steps", "1", "--device", "cpu",
+                             "--profile", str(tmp_path)])
     printed = capsys.readouterr().out.strip().splitlines()
     assert len(printed) == 1
     assert json_keys(os.path.join(REPO, "bench_train.py")) <= set(line)
     assert {"peak_mem_gib", "card"} <= set(line) and line["card"] is None
     assert line["launches"] == dict(flash_attention=0, flash_attention_bwd=0, maximum_path=0)
     assert np.isfinite(line["final_loss"]) and line["value"] > 0
+    assert line["tflops_per_step"] > 0 and line["mfu"] is line["peak_tflops"] is None
+    assert [p.suffix for p in tmp_path.iterdir()] == [".json"]
 
 
 def test_benches_raise_without_cuda(monkeypatch):

@@ -53,7 +53,9 @@ def test_every_module_imports_without_jax():
             "dex_tts_tpu_torch.preprocess.__main__", "dex_tts_tpu_torch.parallel",
             "dex_tts_tpu_torch.parallel.collectives", "dex_tts_tpu_torch.parallel.mesh",
             "dex_tts_tpu_torch.parallel.runtime", "dex_tts_tpu_torch.parallel.tp",
-            "dex_tts_tpu_torch.dryrun"} <= set(_modules())
+            "dex_tts_tpu_torch.dryrun", "dex_tts_tpu_torch.models.xpos",
+            "dex_tts_tpu_torch.utils.mfu", "dex_tts_tpu_torch.utils.profiling",
+            "dex_tts_tpu_torch.utils.logging", "dex_tts_tpu_torch.entry"} <= set(_modules())
 
 
 def test_source_names_no_jax_or_jax_package():

@@ -205,3 +205,17 @@ def vocoder_step(rank, make_state, mel_kw, wav):
     grads = {f"gen.{n}": p.grad for n, p in state.generator.named_parameters()}
     grads.update({f"critics.{n}": p.grad for n, p in state.critics.named_parameters()})
     return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": numpy_dict(grads)}
+
+
+def dit_tp_round_trip(rank, dit_cfg, state_dict, inputs):
+    """A DiT (the decoder variant) sharded over tp 2: its output on the
+    same inputs and its `full_state_dict` gathered back, as numpy."""
+    from dex_tts_tpu_torch.models.dit import DiT
+
+    model = DiT(dit_cfg)
+    model.load_state_dict(state_dict)
+    parallel.shard_tensor_parallel(model, parallel.make_mesh(tp_size=2))
+    with torch.no_grad():
+        out = model(*tensors(inputs).values())
+    return {"out": out.numpy(), "state": numpy_dict(parallel.full_state_dict(model)),
+            "shard_count": parallel.shard_count(model)}
