@@ -133,6 +133,15 @@ The model variants and the bench tooling add:
      card and on the CPU (`utils.mfu`), equal to 1e-6; the LF0 GRU's
      forward + backward (cuDNN's fused RNN on the card) and a DiT block's
      under flash_bf16 (K1 and its backward on the card) equal.
+The YAML configs and the export add:
+ 14. `phase_config_export`, right after phase 9 on the BigVGAN it
+     trained: `python -m dex_tts_tpu_torch.export --config <yaml>
+     --vocoder` on its ``gen_last.pth`` (weight norm split, folded back
+     within 1e-6 × max|W|, a scaled-``weight_g`` control outside); the
+     exported file through a second YAML, bf16 (K2, 109 per call) and f32
+     (K3) against the trained file loaded the same way; `python -m
+     dex_tts_tpu_torch.synthesize --config` with vctk.yaml's full-width
+     DeX from a checkpoint on disk (K1 200 and K2 109 per call).
 The last two lines are the `kernels` JSON line and the device JSON line.
 Needs one card; exits non-zero without CUDA.
 """
@@ -1725,6 +1734,166 @@ def phase_vocoder_train(card: str, directory: str) -> dict:
                 resume=dict(live=want, resumed=got, generator_off=gen_off))
 
 
+EXPORT_FOLD_REL = 1e-6  # fold_weight_norm(export) vs the trained weights, × max|W| per tensor
+EXPORT_WAV_REL = {"auto": 8e-3, "float32": 1e-5}  # exported vs trained BigVGAN, × max|y|
+CONFIG_SEED = 17
+
+
+def phase_config_export(card: str, directory: str) -> dict:
+    """The YAML config system and the vocoder export, on what
+    `phase_vocoder_train` left in ``directory`` (the full-width f32
+    BigVGAN's ``ckpt_bigvgan/gen_last.pth``). The configs are the text of
+    dex_tts_tpu/config/presets/vctk.yaml, read as a user's file, with
+    ``vocoder: bigvgan`` and ``path.vocoder_path`` changed and written back
+    (`utils.config.load_config`, `Config.dump`).
+    (a) `python -m dex_tts_tpu_torch.export --config <yaml> --vocoder` in
+    this process on ``gen_last.pth``, to a fresh directory as
+    ``g_05000000``: every conv weight split (``weight_v`` the trained
+    weight, bit for bit) and every other tensor unchanged; folded back, each
+    weight within ``EXPORT_FOLD_REL`` × max|W| of the trained one, and a
+    control with one ``weight_g`` scaled by 1.01 more than 10× outside.
+    (b) the exported file through a second YAML that names it, against
+    ``gen_last.pth`` loaded the same way, on the card: bf16 ("auto") within
+    8e-3 × max|y|, and with ``vocoder_dtype: float32`` within 1e-5 ×
+    max|y|; 109 snake launches per call. (c) `python -m
+    dex_tts_tpu_torch.synthesize --config <the second yaml>` in this process
+    on one sentence with vctk.yaml's full-width f32 DeX (attention "auto"),
+    a seeded checkpoint saved through `CheckpointManager`, and a reference
+    WAV: a finite WAV of at least 2 s, K1 and K2 counted over the call
+    (expect 200 and 109), and `preset_from_config` of vctk.yaml equal to
+    the `vctk` preset's model. → report."""
+    from dex_tts_tpu_torch import export, synthesize
+    from dex_tts_tpu_torch.audio.wav import read_wav
+    from dex_tts_tpu_torch.config import build_model, load_preset, preset_from_config
+    from dex_tts_tpu_torch.convert import fold_weight_norm
+    from dex_tts_tpu_torch.eval.evaluation import load_vocoder
+    from dex_tts_tpu_torch.ops.attention import flash_attention
+    from dex_tts_tpu_torch.ops.snake import snake_antialias
+    from dex_tts_tpu_torch.pipeline import SAMPLE_RATE
+    from dex_tts_tpu_torch.train import create_train_state
+    from dex_tts_tpu_torch.train.checkpoint import CheckpointManager
+    from dex_tts_tpu_torch.utils.config import Config, load_config
+
+    t_phase = time.perf_counter()
+    vctk_yaml = os.path.join(os.path.dirname(os.path.abspath(__file__)), "dex_tts_tpu", "config",
+                             "presets", "vctk.yaml")
+    trained_dir = os.path.join(directory, "ckpt_bigvgan")
+    trained = torch.load(os.path.join(trained_dir, "gen_last.pth"), map_location="cpu",
+                         weights_only=True)
+
+    def write_config(name, vocoder_path, **overrides):
+        cfg = load_config(vctk_yaml, {"vocoder": "bigvgan", "path": {"vocoder_path": vocoder_path},
+                                      **overrides})
+        path = os.path.join(directory, name)
+        cfg.dump(path)
+        return path
+
+    # (a) the export
+    exported = os.path.join(directory, "exported", "g_05000000")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        export.main(["--config", write_config("trained.yaml", trained_dir), "--vocoder",
+                     "--out", exported])
+    export_s = time.perf_counter() - t0
+    gen = torch.load(exported, map_location="cpu", weights_only=True)["generator"]
+    split = sorted(k for k, v in trained.items() if k.endswith(".weight") and v.ndim >= 2)
+    kept = sorted(set(trained) - set(split))
+    assert set(gen) == set(kept) | {k + s for k in split for s in ("_g", "_v")}, \
+        set(gen) ^ (set(kept) | {k + s for k in split for s in ("_g", "_v")})
+    assert all(torch.equal(gen[k + "_v"], trained[k]) for k in split)
+    assert all(torch.equal(gen[k], trained[k]) for k in kept)
+    assert all(gen[k + "_g"].shape == trained[k].shape[:1] + (1,) * (trained[k].ndim - 1)
+               for k in split)
+
+    def fold_ratio(state):
+        folded = fold_weight_norm({k: v.numpy() for k, v in state.items()})
+        return max(float(np.abs(folded[k] - trained[k].numpy()).max())
+                   / (EXPORT_FOLD_REL * float(trained[k].abs().max())) for k in split)
+
+    fold_worst = fold_ratio(gen)
+    control = dict(gen)
+    control[split[0] + "_g"] = gen[split[0] + "_g"] * 1.01
+    fold_control = fold_ratio(control)
+    log(f"[config export] export --vocoder of the trained BigVGAN: {len(split)} conv weights"
+        f" split, {len(kept)} tensors unchanged, {export_s:.2f} s; folded back, worst"
+        f" error/bound {fold_worst:.3e} (control with one weight_g x 1.01: {fold_control:.3e})"
+        f" [{card}]")
+    assert fold_worst <= 1.0 and fold_control > 10.0, (fold_worst, fold_control)
+    del trained, gen, control
+
+    # (b) the exported file through a config that names it, on the card
+    mel = torch.randn(1, 80, 256, generator=torch.Generator().manual_seed(CONFIG_SEED)).cuda()
+    wavs = {}
+    for dtype in EXPORT_WAV_REL:
+        extra = {} if dtype == "auto" else {"vocoder_dtype": dtype}
+        for name, voc_path in (("trained", trained_dir), ("exported", exported)):
+            preset = preset_from_config(Config(write_config(f"{name}_{dtype}.yaml", voc_path,
+                                                            **extra)))
+            vocoder = load_vocoder(preset, device="cuda")
+            want_dtype = "bfloat16" if dtype == "auto" else "float32"
+            assert vocoder.cfg.dtype == want_dtype, (dtype, name, vocoder.cfg.dtype)
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                snake_antialias.launches = 0
+                y = vocoder(mel).float()
+                torch.cuda.synchronize()
+            wavs[dtype, name] = (y, snake_antialias.launches)
+            del vocoder
+        (want, n_want), (got, n_got) = wavs[dtype, "trained"], wavs[dtype, "exported"]
+        err = (got - want).abs().max().item()
+        bound = EXPORT_WAV_REL[dtype] * want.abs().max().item()
+        wavs[dtype] = dict(max_abs_err=err, bound=bound, launches=n_got)
+        log(f"[config export] BigVGAN vocoder_dtype {dtype}: exported vs trained max|dy| {err:.3e}"
+            f" (bound {bound:.3e}, ratio {err / bound:.3e}); snake launches {n_want} / {n_got}"
+            f" [{card}]")
+        assert torch.isfinite(got).all() and err <= bound, (dtype, err, bound)
+        assert n_want == n_got == SNAKE_LAUNCHES, (n_want, n_got)
+    torch.cuda.empty_cache()
+
+    # (c) synthesize --config at vctk.yaml's width from a checkpoint on disk
+    yaml_exported = os.path.join(directory, "exported_auto.yaml")
+    preset = preset_from_config(Config(yaml_exported))
+    assert preset.model == load_preset("vctk").model, "vctk.yaml != the vctk preset"
+    torch.manual_seed(0)
+    model = build_model(preset.model, device="cuda")
+    perturb_(model, seed=3)
+    with torch.no_grad():  # durations pinned, as build_main_path does
+        model.encoder.proj_w.proj.weight.zero_()
+        model.encoder.proj_w.proj.bias.fill_(math.log(FRAMES_PER_TOKEN))
+    exp_dir = os.path.join(directory, "exp")
+    CheckpointManager(os.path.join(exp_dir, "ckpt")).save(create_train_state(model), "best-train")
+    del model
+    ref_dir = os.path.join(directory, "ref")
+    os.makedirs(ref_dir)
+    ref = write_reference_wavs(ref_dir, 1)[0]
+    argv = ["--config", yaml_exported, "--weight_path", exp_dir, "--input_text", SENTENCES[0],
+            "--ref_name", ref, "--seed", str(CONFIG_SEED),
+            "--out_dir", os.path.join(directory, "synth")]
+    n_timesteps = synthesize.parse_args(argv).n_timesteps
+    torch.cuda.synchronize()
+    flash_attention.launches = snake_antialias.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        [(path, out)] = synthesize.main(argv)
+    torch.cuda.synchronize()
+    synth_s = time.perf_counter() - t0
+    k1, k2 = flash_attention.launches, snake_antialias.launches
+    wav, sr = read_wav(path)
+    log(f"[config export] synthesize --config (vctk.yaml, f32 DeX, attention auto, exported bf16"
+        f" BigVGAN): {wav.size / sr:.3f} s of audio, {out['n_frames']} frames, {synth_s:.2f} s"
+        f" with the loads; K1 {k1}, K2 {k2} per call [{card}]")
+    assert sr == SAMPLE_RATE and wav.size >= 2 * SAMPLE_RATE, (sr, wav.size)
+    assert wav.shape == out["wav"].shape and np.isfinite(wav).all()
+    assert np.isfinite(out["wav"]).all() and np.abs(out["wav"]).max() > 0
+    assert k1 == preset.model.dit.depth * n_timesteps and k2 == SNAKE_LAUNCHES, (k1, k2)
+    wall = time.perf_counter() - t_phase
+    log(f"[config export] phase wall {wall:.1f} s, export {export_s:.2f} s [{card}]")
+    torch.cuda.empty_cache()
+    return dict(export_s=export_s, wall_s=wall, fold_ratio=fold_worst, fold_control=fold_control,
+                wav={k: wavs[k] for k in EXPORT_WAV_REL}, synthesize_s=synth_s,
+                launches=dict(flash_attention=k1, snake=k2))
+
+
 def with_dit(preset, **dit_overrides):
     """``preset`` with its DiT config changed: how a variant is reached
     without a preset of its own (the JAX YAML's ``model.dit`` keys)."""
@@ -1976,20 +2145,6 @@ STREAM_PARAGRAPHS = [" ".join(SENTENCES[(4 * k + j) % len(SENTENCES)] for j in r
                      for k in range(4)]
 
 
-def weight_normed(state: dict) -> dict:
-    """A generator state_dict in the reference's weight-norm layout: every
-    conv weight W (ndim ≥ 2) as weight_g = ‖W‖ over the non-output axes
-    and weight_v = W."""
-    out = {}
-    for key, value in state.items():
-        if key.endswith(".weight") and value.ndim >= 2:
-            out[key + "_g"] = value.norm(dim=tuple(range(1, value.ndim)), keepdim=True)
-            out[key + "_v"] = value
-        else:
-            out[key] = value
-    return out
-
-
 def write_checkpoints(directory: str) -> tuple[str, str]:
     """The main path's seeded random DeX (`build_main_path`: vctk_bench,
     durations pinned) saved through `CheckpointManager` as ``best-train``,
@@ -2013,10 +2168,11 @@ def write_hifigan_release(voc_dir: str, vocoder) -> None:
     (``generator_universal.pth.tar.zip``), with a config.json beside it."""
     import zipfile
 
+    from dex_tts_tpu_torch.export import save_torch_checkpoint, vocoder_reference_state
+
     os.makedirs(voc_dir)
     raw = os.path.join(voc_dir, "generator_universal.pth.tar")
-    state = {k: v.detach().cpu() for k, v in vocoder.state_dict().items()}
-    torch.save({"generator": weight_normed(state)}, raw)
+    save_torch_checkpoint(raw, {"generator": vocoder_reference_state(vocoder)})
     with zipfile.ZipFile(raw + ".zip", "w") as zf:
         zf.write(raw, os.path.basename(raw))
     os.remove(raw)
@@ -3100,8 +3256,10 @@ def main():
                  for attention in ("auto", "flash_bf16")}
         with tempfile.TemporaryDirectory() as tmp:
             fit = phase_trainer_fit(card, tmp)
-        with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp:
+        with torch_tf32_defaults():
             vocoder_train = phase_vocoder_train(card, tmp)
+        config_export = phase_config_export(card, tmp)  # on vocoder_train's generator
     hifigan = phase_main_path(card, "vctk_bench", {"ref_feats": random_ref_feats(16)},
                               {"ref_feats": random_ref_feats(3, seed=6)}, sampler_options=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3154,6 +3312,8 @@ def main():
                              # the DiT variants (conv1d time position + decoder)
                              "variant_request_1": variants["request_1"]["variant"]["launches"],
                              "variant_card_vs_cpu": variants["card_vs_cpu"]["launches"],
+                             # synthesize --config with vctk.yaml's f32 DeX
+                             "config_synthesize": config_export["launches"]["flash_attention"],
                              **par["flash_attention"]},
         "max_abs_err": bf16["max_abs_err"],
         "ms": bf16["ms"],
@@ -3235,7 +3395,13 @@ def main():
                              f"vocoder_train_bigvgan_{VOCODER_STEPS}_steps":
                                  vocoder_train["bigvgan"]["launches"],
                              f"vocoder_train_hifigan_{VOCODER_STEPS_HIFIGAN}_steps":
-                                 vocoder_train["hifigan"]["launches"], **par["snake"]},
+                                 vocoder_train["hifigan"]["launches"],
+                             # the exported BigVGAN: one call in bf16 (K2) and
+                             # one in f32 (K3), then synthesize --config (K2)
+                             "config_export_bf16": config_export["wav"]["auto"]["launches"],
+                             "config_export_f32": config_export["wav"]["float32"]["launches"],
+                             "config_synthesize": config_export["launches"]["snake"],
+                             **par["snake"]},
         "launches_per_vocoder_train_step": vocoder_train["bigvgan"]["per_step"],
         "max_abs_err": sb["max_abs_err"],
         # times: one generator call at request 1's shapes, Σ over the six
@@ -3269,6 +3435,13 @@ def main():
         f" {vocoder_train['hifigan']['peak_gib']:.2f} GiB; snake per BigVGAN step (f32 kernel fwd +"
         f" plain bwd) {snake_grad[torch.float32]['per_train_step']['fwd_bwd_ms']:.3f} ms; vocoder"
         f" step card vs CPU worst error/bound {vocoder_parity['worst_ratio']:.3e} [{card}]")
+    log(f"config and export: export --vocoder {config_export['export_s']:.2f} s, phase"
+        f" {config_export['wall_s']:.1f} s; fold error/bound {config_export['fold_ratio']:.3e};"
+        f" exported vs trained BigVGAN error/bound "
+        + ", ".join(f"{k} {v['max_abs_err'] / v['bound']:.3e}"
+                    for k, v in config_export["wav"].items())
+        + f"; synthesize --config K1 {config_export['launches']['flash_attention']}, K2"
+        f" {config_export['launches']['snake']} [{card}]")
     log(f"serving from a checkpoint: /tts x16 latency p50 {served['tts_p50_s']:.4f} s, p95"
         f" {served['tts_p95_s']:.4f} s; /tts_stream x4 time to first audio p50"
         f" {served['ttfa_p50_s']:.4f} s, p95 {served['ttfa_p95_s']:.4f} s; batch sizes"

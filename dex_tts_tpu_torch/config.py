@@ -14,6 +14,17 @@ stride 4, one speaker, no style) with HiFi-GAN. ``libritts``,
 ``gedex_vctk`` and ``gedex_ljspeech`` are transcribed from their YAMLs
 in dex_tts_tpu/config/presets/ (GeDEX: no style; VCTK's 108 speakers,
 LJSpeech's one with DiT patch 7 / stride 4; both read EMA weights).
+
+`preset_from_config` builds a Preset from a YAML config in the JAX
+package's layout (`utils.config.Config`), as `dex_tts_tpu.config.
+build_model`/`build_dit_config` and the JAX entry points read it, with
+their ``.get`` defaults and casts. Keys that chose a TPU lowering of the
+same math are accepted and change nothing here: ``model.dit.
+pos_conv_impl``, ``flash_block_q``, ``flash_block_k`` and ``model.
+decoder.linattn_impl`` are carried into the configs, which ignore them;
+``vocoder_upsample_impl``, ``vocoder_snake_pallas`` and
+``vocoder_snake_impl`` are not read. Paths stay as the YAML gives them,
+relative to the working directory.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from dex_tts_tpu_torch.models.vocoder import (
 )
 from dex_tts_tpu_torch.ops.masks import fix_len_compatibility
 from dex_tts_tpu_torch.text.symbols import N_VOCAB
+from dex_tts_tpu_torch.utils.config import Config
 from dex_tts_tpu_torch.utils.device import resolve_device
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -71,7 +83,9 @@ class Preset:
     the vocoder's reference checkpoint, relative to the working
     directory. ``sample_rate``, ``hop_length``, ``n_fft``, ``win_length``,
     ``n_mels``, ``f_min`` and ``f_max`` are the ``preprocess`` section's
-    mel parameters, which the vocoder trainer trains on."""
+    mel parameters, which the vocoder trainer trains on. ``vocoder_dtype``
+    is the YAML's ``vocoder_dtype``: "auto" (bf16 BigVGAN on the card,
+    f32 otherwise) or a dtype that `eval.evaluation.load_vocoder` forces."""
 
     model: TTSConfig
     vocoder: HiFiGANConfig | BigVGANConfig = field(default_factory=HiFiGANConfig)
@@ -91,6 +105,7 @@ class Preset:
     f_max: float = 8000.0
     ema: bool = False
     vocoder_path: str = "hifigan/weights"
+    vocoder_dtype: str = "auto"
 
     def out_size(self) -> int | None:
         """Training mel segment length: ``fix_len`` s of audio, rounded for
@@ -301,6 +316,134 @@ PRESETS = {"vctk": vctk, "esd": esd, "libritts": libritts, "gedex_vctk": gedex_v
 
 def load_preset(name: str) -> Preset:
     return PRESETS[name]()
+
+
+def _dit_config(d) -> DiTConfig:
+    """The ``model.dit`` section (JAX: config/__init__.py build_dit_config)."""
+    return DiTConfig(
+        patch_size=d.patch_size,
+        stride_size=d.stride_size,
+        overlap=d.get("overlap", True),
+        hidden_size=d.hidden_size,
+        depth=d.depth,
+        num_heads=d.num_heads,
+        mlp_ratio=float(d.mlp_ratio),
+        conv_pos=d.get("conv_pos", 16),
+        conv_pos_groups=d.get("conv_pos_groups", 8),
+        pos_conv_impl=d.get("pos_conv_impl", DiTConfig.pos_conv_impl),
+        pos_embed_time=d.get("pos_embed_time", DiTConfig.pos_embed_time),
+        mask_type=d.get("mask_type", "random"),
+        use_decoder=d.get("use_decoder", False),
+        attention=d.get("attention", "einsum"),
+        auto_flash_min_tokens=d.get("auto_flash_min_tokens", DiTConfig.auto_flash_min_tokens),
+        auto_flash_min_tokens_train=d.get("auto_flash_min_tokens_train",
+                                          DiTConfig.auto_flash_min_tokens_train),
+        flash_block_q=d.get("flash_block_q", None),
+        flash_block_k=d.get("flash_block_k", None),
+    )
+
+
+def _tts_config(cfg) -> TTSConfig:
+    """The ``model`` section and ``model_family``/``n_vocab`` (JAX:
+    config/__init__.py build_model; DeX forces n_spks=0)."""
+    m, enc, dec = cfg.model, cfg.model.encoder, cfg.model.decoder
+    common = dict(
+        n_vocab=cfg.get("n_vocab", N_VOCAB),
+        n_feats=m.n_feats,
+        spk_emb_dim=m.get("spk_emb_dim", 64),
+        enc_channels=enc.n_channels,
+        enc_filter_channels=enc.filter_channels,
+        enc_filter_channels_dp=enc.filter_channels_dp,
+        enc_heads=enc.n_heads,
+        enc_layers=enc.n_layers,
+        enc_kernel=enc.kernel_size,
+        enc_dropout=enc.p_dropout,
+        use_softmax=enc.get("use_softmax", True),
+        use_decay=enc.get("use_decay", False),
+        dec_dim=dec.dim,
+        dec_dim_mults=tuple(dec.dim_mults),
+        pe_scale=float(dec.get("pe_scale", 1000)),
+        loss_type=dec.get("loss_type", "base"),
+        compute_dtype=dec.get("compute_dtype", "float32"),
+        linattn_impl=dec.get("linattn_impl", "fused"),
+        dit=_dit_config(m.dit),
+    )
+    if cfg.get("model_family", "dex") != "dex":
+        return TTSConfig(n_spks=m.get("n_spks", 1), **common)
+    tv, lf0, tiv = m.tv_encoder, m.lf0_encoder, m.tiv_encoder
+    return TTSConfig(
+        n_spks=0, use_style=True,
+        tv_c_h=tv.c_h, tv_c_out=tv.c_out, tv_c_out_g=tv.c_out_g, tv_layers=tv.num_layer,
+        tv_n_emb=tv.n_emb, tv_commit_w=tv.commit_w,
+        lf0_c_h=lf0.c_h, lf0_c_out=lf0.c_out, lf0_c_out_g=lf0.c_out_g,
+        lf0_layers=lf0.num_layer,
+        tiv_c_h=tiv.c_h, tiv_c_out=tiv.c_out, tiv_layers=tiv.num_layer,
+        **common,
+    )
+
+
+def _train_config(tr) -> TrainConfig:
+    """The ``train`` section, with main.py's defaults and casts."""
+    return TrainConfig(
+        epoch=int(tr.epoch),
+        batch_size=int(tr.batch_size),
+        lr=float(tr.lr),
+        save_epoch=int(tr.get("save_epoch", 200)),
+        syn_every=int(tr.get("syn_every", 0)),
+        fix_len=float(tr.get("fix_len", 2)),
+        out_size=bool(tr.get("out_size", True)),
+        max_grad=float(tr.get("max_grad", 1.0)),
+        ema_decay=float(tr.get("ema_decay", 0.9999)),
+        mask_ratio=float(tr.get("mask_ratio", 0.0)),
+        ref_type=tr.get("ref_type", "mel"),
+        sty_type=tr.get("sty_type", "mel"),
+        aug_type=tuple(tr.get("aug_type", ["N", "N", "N"])),
+        unseen_spk=tuple(tr.get("unseen_spk", ())),
+        x_quantum=int(tr.get("x_quantum", 32)),
+        y_quantum=int(tr.get("y_quantum", 64)),
+        accum_steps=int(tr.get("accum_steps", 1)),
+        async_ckpt=bool(tr.get("async_ckpt", False)),
+    )
+
+
+def preset_from_config(cfg) -> Preset:
+    """A YAML config in the JAX package's layout (`utils.config.Config`)
+    → Preset: the model, the vocoder ``vocoder`` names at the
+    ``preprocess`` section's n_mels (HiFi-GAN or BigVGAN, as the JAX
+    loader builds them), ``test``'s ema, steps and temperature, ``path``'s
+    filelists, CMU dictionary and vocoder path, the mel parameters, the
+    ``train`` block (None without one) and ``vocoder_dtype``."""
+    pre, test, path = cfg.get("preprocess", {}), cfg.get("test", {}), cfg.path
+    n_mels = int(pre.get("n_mels", 80))
+    kind = str(cfg.get("vocoder", "hifigan")).lower()
+    return Preset(
+        model=_tts_config(cfg),
+        vocoder=(BigVGANConfig if kind == "bigvgan" else HiFiGANConfig)(num_mels=n_mels),
+        n_timesteps=int(test.get("n_timesteps", 50)),
+        temperature=float(test.get("temperature", 1.5)),
+        cmu_path=path.get("cmu_path"),
+        train=_train_config(cfg.train) if cfg.get("train") else None,
+        train_path=path.get("train_path"),
+        val_path=path.get("val_path"),
+        add_blank=bool(cfg.model.get("add_blank", True)),
+        sample_rate=int(pre.get("sample_rate", 22050)),
+        hop_length=int(pre.get("hop_length", 256)),
+        n_fft=int(pre.get("n_fft", 1024)),
+        win_length=int(pre.get("win_length", 1024)),
+        n_mels=n_mels,
+        f_min=float(pre.get("f_min", 0.0)),
+        f_max=float(pre.get("f_max", 8000.0)),
+        ema=bool(test.get("ema", False)),
+        vocoder_path=path.get("vocoder_path", ""),
+        vocoder_dtype=str(cfg.get("vocoder_dtype") or "auto"),
+    )
+
+
+def load_preset_or_config(preset: str | None = None, config: str | None = None) -> Preset:
+    """The entry points' ``--preset NAME`` or ``--config YAML``."""
+    if config is not None:
+        return preset_from_config(Config(config))
+    return load_preset(preset)
 
 
 def build_model(cfg: TTSConfig, device=None) -> GeDEXTTS:

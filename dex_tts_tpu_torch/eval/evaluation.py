@@ -101,14 +101,19 @@ def load_vocoder(preset: Preset, strict: bool = True, device=None, random_init: 
     ``load_state_dict(strict=strict)``. No file raises
     `FileNotFoundError` unless ``random_init`` (smoke runs only).
 
-    dtype: the JAX loader's "auto" picks bf16 for BigVGAN on the TPU and
-    f32 everywhere else; its counterpart here is bf16 for BigVGAN on CUDA
-    (the K2 snake kernel), f32 on the CPU, and f32 for HiFi-GAN."""
+    dtype: ``preset.vocoder_dtype``. The JAX loader's "auto" picks bf16 for
+    BigVGAN on the TPU and f32 everywhere else; its counterpart here is
+    bf16 for BigVGAN on CUDA (the K2 snake kernel), f32 on the CPU, and f32
+    for HiFi-GAN. Any other value is the dtype ("float32": the
+    checkpoint's exact output)."""
     device = resolve_device(device)
     bigvgan = isinstance(preset.vocoder, BigVGANConfig)
     path = preset.vocoder_path
     arch = read_vocoder_arch(path, bigvgan)
-    arch["dtype"] = "bfloat16" if bigvgan and device.type == "cuda" else "float32"
+    dtype = preset.vocoder_dtype
+    if dtype == "auto":
+        dtype = "bfloat16" if bigvgan and device.type == "cuda" else "float32"
+    arch["dtype"] = dtype
     vocoder = build_vocoder(dataclasses.replace(preset.vocoder, **arch), device=device)
     names = ["gen_best.pth", "gen_last.pth"]  # train_vocoder's serving handoff
     if bigvgan:

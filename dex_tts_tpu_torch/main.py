@@ -1,15 +1,27 @@
 """Train / evaluate CLI (port of main.py; reference: DEX-TTS/main.py:21-67).
 
+    python -m dex_tts_tpu_torch.main train --config dex_tts_tpu/config/presets/esd.yaml \\
+        [--tag run1] [--exp_dir checkpoints/esd] [--seed 100] [--resume] \\
+        [--init_from PATH] [--n_timesteps 50] [--solver euler] [--n_devices N] \\
+        [--device cuda]
     python -m dex_tts_tpu_torch.main train --preset esd \\
         --train_path filelists/ESD/train.txt --val_path filelists/ESD/valid.txt \\
-        --exp_dir checkpoints/esd [--seed 100] [--resume] [--init_from PATH] \\
-        [--n_timesteps 50] [--solver euler] [--n_devices N] [--device cuda]
+        --exp_dir checkpoints/esd ...
     torchrun --nproc_per_node N -m dex_tts_tpu_torch.main train ...
-    python -m dex_tts_tpu_torch.main test --preset esd \\
+    python -m dex_tts_tpu_torch.main test (--config Y | --preset esd) \\
         --test_checkpoint <exp_dir or .pth> [--val_path filelists/ESD/test.txt] \\
         [--tag best-train] [--sample_size 10] [--test_file sentences.txt] \\
         [--n_timesteps 50] [--solver euler] [--dit_cache_interval 1] \\
         [--spk_encoder pretrained.pt] [--seed 100] [--random_init] [--device cuda]
+
+``--config`` reads a YAML config in the JAX package's layout
+(`config.preset_from_config`); ``--preset`` names one of the port's
+presets instead (default: esd). ``train --config`` without ``--exp_dir``
+creates the experiment directory from the config, as main.py does
+(`utils.config.set_experiment`: ``{checkpoint}/{dataset}-{N}[-{tag}]``
+with the config written to its ``base.yaml``). ``--tag`` is that
+experiment tag for ``train`` and the checkpoint tag (default best-train)
+for ``test``.
 
 Filelist lines are ``mel_path|text|speaker(|emotion)`` with mel .npy files
 stored (T, n_mels) and lf0 files beside them under ``/lf0/`` (the layout of
@@ -46,19 +58,25 @@ import torch
 import torch.distributed as dist
 
 from dex_tts_tpu_torch import parallel
-from dex_tts_tpu_torch.config import Preset, build_model, load_preset
+from dex_tts_tpu_torch.config import Preset, build_model, load_preset, preset_from_config
 from dex_tts_tpu_torch.convert import load_numpy_state, load_torch_trainer_checkpoint
 from dex_tts_tpu_torch.data import BucketBatcher, TextMelDataset
 from dex_tts_tpu_torch.train import PreemptionGuard, Trainer, TrainState, create_train_state
+from dex_tts_tpu_torch.utils.config import Config, set_experiment
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("action", choices=["train", "test"])
-    p.add_argument("--preset", default="esd")
+    source = p.add_mutually_exclusive_group()
+    source.add_argument("--config", default=None, metavar="YAML",
+                        help="a YAML config in the JAX package's layout")
+    source.add_argument("--preset", default="esd", help="one of config.PRESETS")
     p.add_argument("--train_path", default=None)
     p.add_argument("--val_path", default=None)
-    p.add_argument("--exp_dir", default=None, help="train: the experiment directory (required)")
+    p.add_argument("--exp_dir", default=None,
+                   help="train: the experiment directory (required with --preset; with "
+                        "--config the default creates one from the config)")
     p.add_argument("--seed", type=int, default=100)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--init_from", default=None, metavar="PATH",
@@ -75,7 +93,10 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None, help="default: cuda")
     p.add_argument("--test_checkpoint", default=None, metavar="PATH",
                    help="test: the experiment directory or .pth file to evaluate (required)")
-    p.add_argument("--tag", default="best-train", help="test: the checkpoint tag")
+    p.add_argument("--tag", default=None,
+                   help="train --config: the experiment tag, appended to the name of the "
+                        "directory it creates; test: the checkpoint tag (default "
+                        "best-train)")
     p.add_argument("--sample_size", type=int, default=10, help="test: items to evaluate")
     p.add_argument("--test_file", default=None,
                    help="test: synthesize these lines (text only) instead of the val items")
@@ -87,9 +108,16 @@ def parse_args(argv=None):
     p.add_argument("--random_init", action="store_true",
                    help="test: random weights where a checkpoint is missing (smoke runs only)")
     args = p.parse_args(argv)
-    needed = {"train": "exp_dir", "test": "test_checkpoint"}[args.action]
-    if getattr(args, needed) is None:
-        p.error(f"{args.action} needs --{needed}")
+    if args.action == "test" and args.test_checkpoint is None:
+        p.error("test needs --test_checkpoint")
+    if args.action == "train" and args.exp_dir is None:
+        if args.config is None:
+            p.error("train --preset needs --exp_dir")
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            # every rank would create a directory of its own
+            p.error("train --config under torchrun needs --exp_dir")
+    if args.action == "test":
+        args.tag = args.tag or "best-train"
     return args
 
 
@@ -287,13 +315,16 @@ def test(args, preset: Preset) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    preset = load_preset(args.preset)
+    cfg = Config(args.config) if args.config else None
+    preset = preset_from_config(cfg) if cfg is not None else load_preset(args.preset)
     overrides = {k: getattr(args, k) for k in ("train_path", "val_path") if getattr(args, k)}
     preset = dataclasses.replace(preset, **overrides)
     if args.action == "test":
         return test(args, preset)
     if preset.train is None:
-        raise SystemExit(f"preset {args.preset!r} has no train block")
+        raise SystemExit(f"{args.config or 'preset ' + repr(args.preset)} has no train block")
+    if args.exp_dir is None:
+        args.exp_dir = set_experiment(cfg, tag=args.tag).exp_dir
     return train(preset, args.exp_dir, seed=args.seed, resume=args.resume, device=args.device,
                  init_from=args.init_from, n_timesteps=args.n_timesteps, solver=args.solver,
                  n_devices=args.n_devices)

@@ -6,10 +6,11 @@
   POST /tts_stream  {"text": "paragraph"} → NDJSON, one line per sentence
   GET  /healthz     → {"ok": true, "batch_sizes": [...], "device": ..., "card": ...}
 
-    python -m dex_tts_tpu_torch.serve --preset vctk \\
+    python -m dex_tts_tpu_torch.serve --config dex_tts_tpu/config/presets/vctk.yaml \\
         --weight_path checkpoints/VCTK-0 --ref_name ref.wav --port 8901
 
-``--preset`` replaces serve.py's ``--config`` and ``--device`` its
+``--config`` reads a YAML config in the JAX package's layout; ``--preset``
+names one of the port's presets instead. ``--device`` replaces serve.py's
 ``--platform`` (CUDA unless ``--device cpu``); ``--random_init`` serves
 random weights when no checkpoint is found (a smoke run). serve.py's
 ``--compile_cache`` is not ported: it enabled XLA's persistent compile
@@ -24,7 +25,7 @@ import threading
 
 import torch
 
-from dex_tts_tpu_torch.config import load_preset
+from dex_tts_tpu_torch.config import load_preset_or_config
 from dex_tts_tpu_torch.eval.evaluation import load_synthesizer
 from dex_tts_tpu_torch.serving import MicroBatcher, make_server
 from dex_tts_tpu_torch.utils.device import card_line
@@ -32,7 +33,10 @@ from dex_tts_tpu_torch.utils.device import card_line
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--preset", required=True)
+    source = p.add_mutually_exclusive_group(required=True)
+    source.add_argument("--config", default=None, metavar="YAML",
+                        help="a YAML config in the JAX package's layout")
+    source.add_argument("--preset", default=None, help="one of config.PRESETS")
     p.add_argument("--weight_path", required=True,
                    help="experiment dir (ckpt/<tag>.pth or model-*.pth) or a .pth file")
     p.add_argument("--ref_name", default=None,
@@ -77,7 +81,7 @@ def build_server(args):
     MicroBatcher and the HTTP server (not yet serving) → (server,
     batcher). The batcher's one worker thread makes every `tts` call."""
     torch.manual_seed(args.seed)  # random-init weights only
-    preset = load_preset(args.preset)
+    preset = load_preset_or_config(args.preset, args.config)
     synth = load_synthesizer(
         preset, args.weight_path, n_timesteps=args.n_timesteps, tag=args.checkpoint_tag,
         dit_cache_interval=args.dit_cache_interval, solver=args.solver,

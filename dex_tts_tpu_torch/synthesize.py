@@ -1,7 +1,7 @@
 """One-shot synthesis CLI (port of synthesize.py).
 
     # expressive (style from reference wavs):
-    python -m dex_tts_tpu_torch.synthesize --preset vctk \\
+    python -m dex_tts_tpu_torch.synthesize --config dex_tts_tpu/config/presets/vctk.yaml \\
         --weight_path checkpoints/VCTK-0 --input_text "Hello there." \\
         --ref_name ref1.wav ref2.wav
 
@@ -10,14 +10,16 @@
         --weight_path checkpoints/VCTK-0/model-last.pth --spk_id 3 \\
         --input_text "First sentence. Second one." --long
 
-``--weight_path`` is an experiment directory (``ckpt/<tag>.pth`` of the
-port's trainer, or the reference's ``model-*.pth``) or a ``.pth`` file;
-the vocoder comes from the preset's ``vocoder_path``. ``--preset``
-replaces synthesize.py's ``--config`` (presets are dataclasses, see
-`config.py`) and ``--device`` its ``--platform``: CUDA unless
-``--device cpu``. ``--random_init`` synthesizes from random weights when
-no checkpoint is found (a smoke run; the output is noise). Writes one
-22.05 kHz int16 WAV per reference (``sample.wav`` without one).
+``--config`` reads a YAML config in the JAX package's layout
+(`config.preset_from_config`); ``--preset`` names one of the port's
+presets instead. ``--weight_path`` is an experiment directory
+(``ckpt/<tag>.pth`` of the port's trainer, or the reference's
+``model-*.pth``) or a ``.pth`` file; the vocoder comes from the config's
+``path.vocoder_path``. ``--device`` replaces synthesize.py's
+``--platform``: CUDA unless ``--device cpu``. ``--random_init``
+synthesizes from random weights when no checkpoint is found (a smoke run;
+the output is noise). Writes one 22.05 kHz int16 WAV per reference
+(``sample.wav`` without one).
 """
 
 from __future__ import annotations
@@ -28,13 +30,16 @@ import os
 import torch
 
 from dex_tts_tpu_torch.audio.wav import write_wav
-from dex_tts_tpu_torch.config import load_preset
+from dex_tts_tpu_torch.config import load_preset_or_config
 from dex_tts_tpu_torch.eval.evaluation import load_synthesizer
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--preset", required=True)
+    source = p.add_mutually_exclusive_group(required=True)
+    source.add_argument("--config", default=None, metavar="YAML",
+                        help="a YAML config in the JAX package's layout")
+    source.add_argument("--preset", default=None, help="one of config.PRESETS")
     p.add_argument("--weight_path", required=True,
                    help="experiment dir (ckpt/<tag>.pth or model-*.pth) or a .pth file")
     p.add_argument("--input_text", required=True)
@@ -69,9 +74,10 @@ def main(argv=None) -> list[tuple[str, dict]]:
     args = parse_args(argv)
     torch.manual_seed(args.seed)  # random-init weights only
     synth = load_synthesizer(
-        load_preset(args.preset), args.weight_path, n_timesteps=args.n_timesteps,
-        tag=args.checkpoint_tag, dit_cache_interval=args.dit_cache_interval,
-        solver=args.solver, device=args.device, random_init=args.random_init,
+        load_preset_or_config(args.preset, args.config), args.weight_path,
+        n_timesteps=args.n_timesteps, tag=args.checkpoint_tag,
+        dit_cache_interval=args.dit_cache_interval, solver=args.solver, device=args.device,
+        random_init=args.random_init,
     )
     os.makedirs(args.out_dir, exist_ok=True)
     # one generator feeds every call in turn, as synthesize.py splits one key

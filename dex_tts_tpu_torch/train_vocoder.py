@@ -2,12 +2,14 @@
 train_vocoder.py).
 
     python -m dex_tts_tpu_torch.train_vocoder --data ./preprocessed/LJSpeech/wav \\
-        --vocoder bigvgan --steps 100000 --ckpt_dir ckpt_bigvgan [--preset esd] \\
+        --vocoder bigvgan --steps 100000 --ckpt_dir ckpt_bigvgan \\
+        [--config dex_tts_tpu/config/presets/esd.yaml | --preset esd] \\
         [--resume] [--init_gen generator.pth] [--n_devices N] [--device cuda]
 
 Trains on raw WAVs (a directory, a list of paths or a TTS filelist), both
-mels computed on the device inside the step. ``--preset`` takes the mel
-parameters of a TTS preset's ``preprocess`` section, the ones the TTS
+mels computed on the device inside the step. ``--config`` takes the mel
+parameters of a TTS YAML config's ``preprocess`` section (and nothing
+else of it), ``--preset`` those of a port preset: the ones the TTS
 pipeline will feed the vocoder. Runs on the card unless ``--device cpu``;
 without a card it raises. Checkpoints: ``<ckpt_dir>/last.pth``,
 ``step_{n}.pth`` and ``gen_last.pth`` (the generator alone, which
@@ -48,14 +50,18 @@ from dex_tts_tpu_torch.train.vocoder import (
     create_vocoder_train_state,
     make_vocoder_train_step,
 )
+from dex_tts_tpu_torch.utils.config import Config
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--data", required=True, help="wav directory or TTS filelist")
-    p.add_argument("--preset", default=None,
-                   help="TTS preset whose mel parameters the vocoder trains on (the ones "
-                        "the TTS pipeline feeds it at serving time)")
+    source = p.add_mutually_exclusive_group()
+    source.add_argument("--config", default=None, metavar="YAML",
+                        help="TTS YAML config whose preprocess section the vocoder trains on "
+                             "(the mel parameters the TTS pipeline feeds it at serving time)")
+    source.add_argument("--preset", default=None,
+                        help="TTS preset whose mel parameters the vocoder trains on")
     p.add_argument("--vocoder", choices=["hifigan", "bigvgan"], default="hifigan")
     p.add_argument("--segment", type=int, default=8192)
     p.add_argument("--batch", type=int, default=16)
@@ -101,8 +107,16 @@ def warm_start_generator(state: VocoderTrainState, path: str) -> VocoderTrainSta
 
 
 def mel_settings(args) -> dict:
-    """MelSpectrogram keywords: the preset's preprocess section, else the
+    """MelSpectrogram keywords: the config's ``preprocess`` section with
+    train_vocoder.py's defaults, or the preset's mel parameters, else the
     defaults at ``--sample_rate``."""
+    if args.config:
+        pre = Config(args.config).preprocess
+        return dict(n_fft=int(pre.get("n_fft", 1024)), hop_length=int(pre.get("hop_length", 256)),
+                    win_length=int(pre.get("win_length", 1024)),
+                    n_mels=int(pre.get("n_mels", 80)),
+                    sample_rate=int(pre.get("sample_rate", args.sample_rate)),
+                    fmin=float(pre.get("f_min", 0.0)), fmax=float(pre.get("f_max", 8000.0)))
     if not args.preset:
         return dict(sample_rate=args.sample_rate)
     pre = load_preset(args.preset)

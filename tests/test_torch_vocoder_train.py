@@ -21,7 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import weight_normed, write_reference_wavs  # noqa: E402
+from chip_smoke import write_reference_wavs  # noqa: E402
 from dex_tts_tpu.audio.stft import MelSpectrogram as JaxMel  # noqa: E402
 from dex_tts_tpu.audio.wav import write_wav  # noqa: E402
 from dex_tts_tpu.data import vocoder_dataset as jds  # noqa: E402
@@ -42,6 +42,7 @@ from dex_tts_tpu_torch.convert import (  # noqa: E402
 )
 from dex_tts_tpu_torch.data import vocoder_dataset as pds  # noqa: E402
 from dex_tts_tpu_torch.eval.evaluation import load_vocoder  # noqa: E402
+from dex_tts_tpu_torch.export import vocoder_reference_state  # noqa: E402
 from dex_tts_tpu_torch.models.vocoder import (  # noqa: E402
     BigVGANConfig,
     BigVGANGenerator,
@@ -379,7 +380,8 @@ def test_init_gen_from_a_weight_normed_release(tmp_path):
     fresh state's generator exactly as the JAX CLI converts it."""
     jcfg, jgen, pcfg, _, convert = GENERATORS["bigvgan"]
     source = _port_state("bigvgan")
-    release = weight_normed({k: v.detach() for k, v in source.generator.state_dict().items()})
+    release = {k: torch.from_numpy(v)
+               for k, v in vocoder_reference_state(source.generator).items()}
     release["resblocks.0.activations.0.upsample.filter"] = torch.ones(1, 1, 12)
     release["activation_post.downsample.lowpass.filter"] = torch.ones(1, 1, 12)
     path = str(tmp_path / "g_release.pth")
