@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from dex_tts_tpu_torch.models.layers import TimestepEmbedder, run_in, train_uniform
 from dex_tts_tpu_torch.ops.attention import flash_attention_qkv
+from dex_tts_tpu_torch.utils import profiling
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 POS_EMBED_TIME = ("conv2d", "conv1d")
@@ -279,6 +280,8 @@ class DiT(nn.Module):
         t_emb = self.t_embedder(t)
 
         x = x + self.time_pos(x)[:, :, :, :wp].to(x.dtype)
+        if profiling.TRACING:
+            profiling.count_casts(x.dtype, self.freq_new_pos_embed)
         x = x + self.freq_new_pos_embed.to(x.dtype)
         tokens = x.flatten(2).transpose(1, 2)  # (B, H'·W', D), freq-major
         n_tokens = tokens.shape[1]

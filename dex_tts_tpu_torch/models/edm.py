@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from dex_tts_tpu_torch.parallel import collectives
+from dex_tts_tpu_torch.utils import profiling
 
 
 def edm_precond_scalings(sigma, sigma_data: float = 0.5):
@@ -318,23 +319,24 @@ def ablation_sampler(denoise_fn, latents, cfg: SamplerConfig, sigma_data: float 
     x = latents * float(sched["x_init_scale"])
     for i in range(cfg.num_steps):
         ps = _per_step(sched, i)
-        x_hat = ps["ratio_s"] * x
-        if cfg.s_churn > 0:
-            noise = collectives.randn(x.shape, generator=generator, dtype=x.dtype,
-                                      device=x.device)
-            x_hat = x_hat + ps["churn_std"] * noise
-        den = denoised_at(x_hat * ps["inv_s_hat"], ps["sigma_hat"])
-        d_cur = ps["a_hat"] * x_hat - ps["b_hat"] * den
-        if cfg.solver == "heun" and not sched["last_step"][i]:
-            # the reference skips the 2nd-order correction on the last step
-            x_prime = x_hat + ps["alpha_h"] * d_cur
-            den2 = denoised_at(x_prime * ps["inv_s_prime"], ps["sigma_prime"])
-            d_prime = ps["a_prime"] * x_prime - ps["b_prime"] * den2
-            x = x_hat + ps["h"] * (
-                (1 - 1 / (2 * cfg.alpha)) * d_cur + (1 / (2 * cfg.alpha)) * d_prime
-            )
-        else:
-            x = x_hat + ps["h"] * d_cur
+        with profiling.span("sampler.step", x.device, index=i, sigma=ps["sigma_hat"]):
+            x_hat = ps["ratio_s"] * x
+            if cfg.s_churn > 0:
+                noise = collectives.randn(x.shape, generator=generator, dtype=x.dtype,
+                                          device=x.device)
+                x_hat = x_hat + ps["churn_std"] * noise
+            den = denoised_at(x_hat * ps["inv_s_hat"], ps["sigma_hat"])
+            d_cur = ps["a_hat"] * x_hat - ps["b_hat"] * den
+            if cfg.solver == "heun" and not sched["last_step"][i]:
+                # the reference skips the 2nd-order correction on the last step
+                x_prime = x_hat + ps["alpha_h"] * d_cur
+                den2 = denoised_at(x_prime * ps["inv_s_prime"], ps["sigma_prime"])
+                d_prime = ps["a_prime"] * x_prime - ps["b_prime"] * den2
+                x = x_hat + ps["h"] * (
+                    (1 - 1 / (2 * cfg.alpha)) * d_cur + (1 / (2 * cfg.alpha)) * d_prime
+                )
+            else:
+                x = x_hat + ps["h"] * d_cur
     return x
 
 
@@ -353,9 +355,10 @@ def _dpmpp2m_sampler(denoised_at, latents, cfg: SamplerConfig):
     old_den = torch.zeros_like(x)
     for i in range(cfg.num_steps):
         ps = _per_step(sched, i)
-        den = denoised_at(x, ps["sigma"])
-        x = ps["ratio"] * x + ps["cd"] * (ps["c1"] * den + ps["c2"] * old_den)
-        old_den = den
+        with profiling.span("sampler.step", x.device, index=i, sigma=ps["sigma"]):
+            den = denoised_at(x, ps["sigma"])
+            x = ps["ratio"] * x + ps["cd"] * (ps["c1"] * den + ps["c2"] * old_den)
+            old_den = den
     return x
 
 
@@ -386,12 +389,13 @@ def _dit_cache_sampler(denoise_fn_mid, denoise_fn_cached, latents, cfg: SamplerC
     mid = None
     for i in range(cfg.num_steps):
         ps = _per_step(sched, i)
-        x_hat = ps["ratio_s"] * x
-        if i % k == 0:
-            den, mid = apply_precond(denoise_fn_mid, x_hat * ps["inv_s_hat"], sigma_b(ps),
-                                     sigma_data, has_aux=True, **cond)
-        else:
-            den = apply_precond(denoise_fn_cached, x_hat * ps["inv_s_hat"], sigma_b(ps),
-                                sigma_data, mid=mid, **cond)
-        x = x_hat + ps["h"] * (ps["a_hat"] * x_hat - ps["b_hat"] * den)
+        with profiling.span("sampler.step", x.device, index=i, sigma=ps["sigma_hat"]):
+            x_hat = ps["ratio_s"] * x
+            if i % k == 0:
+                den, mid = apply_precond(denoise_fn_mid, x_hat * ps["inv_s_hat"], sigma_b(ps),
+                                         sigma_data, has_aux=True, **cond)
+            else:
+                den = apply_precond(denoise_fn_cached, x_hat * ps["inv_s_hat"], sigma_b(ps),
+                                    sigma_data, mid=mid, **cond)
+            x = x_hat + ps["h"] * (ps["a_hat"] * x_hat - ps["b_hat"] * den)
     return x

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from dex_tts_tpu_torch.parallel import collectives
 from dex_tts_tpu_torch.parallel.tp import TensorParallelLinear
+from dex_tts_tpu_torch.utils import profiling
 
 
 def run_in(mod: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -30,6 +31,8 @@ def run_in(mod: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     bias cast to ``dtype`` (a no-op cast when they already are)."""
     if isinstance(mod, TensorParallelLinear):
         return mod(x, dtype)
+    if profiling.TRACING:
+        profiling.count_casts(dtype, mod.weight, mod.bias)
     w = mod.weight.to(dtype)
     b = None if mod.bias is None else mod.bias.to(dtype)
     x = x.to(dtype)

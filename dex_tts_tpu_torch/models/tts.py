@@ -34,6 +34,7 @@ from dex_tts_tpu_torch.ops.mas import MAS_ERRORS, maximum_path
 from dex_tts_tpu_torch.ops.masks import duration_loss, generate_path, sequence_mask
 from dex_tts_tpu_torch.ops.segment import random_segment
 from dex_tts_tpu_torch.parallel import collectives
+from dex_tts_tpu_torch.utils import profiling
 
 LOG_2PI = math.log(2 * math.pi)
 
@@ -175,45 +176,47 @@ class GeDEXTTS(nn.Module):
         y_lengths (B,) int32); frames past each item's length are zero.
         ``latents_noise`` (B, F, y_max_length) replaces the initial noise
         drawn from ``generator``. reference: GeDEX-TTS/model/tts.py:27-56."""
-        cond = self._cond_from_inputs(**cond_inputs)
-        cond.pop("vq_loss", None)
-        mu_x, logw, x_mask = self._encode(
-            x, x_lengths, spk=spk, sty=cond.pop("sty_enc", None)
-        )
-        w = torch.exp(logw[:, :, 0]) * x_mask[:, :, 0]
-        w_ceil = torch.ceil(w) * length_scale
-        y_lengths = torch.clamp(w_ceil.sum(1), min=1.0)
-        y_lengths = torch.clamp(y_lengths, max=float(y_max_length)).to(torch.int32)
+        with profiling.span("tts.text_to_mel", x.device):
+            with profiling.span("text_to_mel.encode", x.device):
+                cond = self._cond_from_inputs(**cond_inputs)
+                cond.pop("vq_loss", None)
+                mu_x, logw, x_mask = self._encode(
+                    x, x_lengths, spk=spk, sty=cond.pop("sty_enc", None)
+                )
+                w = torch.exp(logw[:, :, 0]) * x_mask[:, :, 0]
+                w_ceil = torch.ceil(w) * length_scale
+                y_lengths = torch.clamp(w_ceil.sum(1), min=1.0)
+                y_lengths = torch.clamp(y_lengths, max=float(y_max_length)).to(torch.int32)
 
-        y_mask = sequence_mask(y_lengths, y_max_length).to(mu_x.dtype)
-        attn_mask = x_mask[:, :, 0][:, :, None] * y_mask[:, None, :]
-        attn = generate_path(w_ceil, attn_mask)
-        mu_y = torch.einsum("bxt,bxf->bft", attn, mu_x)
-        mask3 = y_mask[:, None, :]
+                y_mask = sequence_mask(y_lengths, y_max_length).to(mu_x.dtype)
+                attn_mask = x_mask[:, :, 0][:, :, None] * y_mask[:, None, :]
+                attn = generate_path(w_ceil, attn_mask)
+                mu_y = torch.einsum("bxt,bxf->bft", attn, mu_x)
+                mask3 = y_mask[:, None, :]
 
-        denoise_kwargs = self._denoise_kwargs(spk=spk, **cond)
-        denoiser = self.decoder.denoise_fn
+                denoise_kwargs = self._denoise_kwargs(spk=spk, **cond)
+                denoiser = self.decoder.denoise_fn
 
-        def denoise_fn(z, t):
-            return denoiser(z, mask3, mu_y, t, **denoise_kwargs)
+                def denoise_fn(z, t):
+                    return denoiser(z, mask3, mu_y, t, **denoise_kwargs)
 
-        # DiT-cache ("turbo") sampling hooks, used only when
-        # sampler.dit_cache_interval > 1 (models/edm._dit_cache_sampler)
-        def denoise_fn_mid(z, t):
-            return denoiser(z, mask3, mu_y, t, return_mid=True, **denoise_kwargs)
+                # DiT-cache ("turbo") sampling hooks, used only when
+                # sampler.dit_cache_interval > 1 (models/edm._dit_cache_sampler)
+                def denoise_fn_mid(z, t):
+                    return denoiser(z, mask3, mu_y, t, return_mid=True, **denoise_kwargs)
 
-        def denoise_fn_cached(z, t, mid=None):
-            return denoiser(z, mask3, mu_y, t, mid_override=mid, **denoise_kwargs)
+                def denoise_fn_cached(z, t, mid=None):
+                    return denoiser(z, mask3, mu_y, t, mid_override=mid, **denoise_kwargs)
 
-        if latents_noise is None:
-            latents_noise = collectives.randn(
-                mu_y.shape, generator=generator, dtype=mu_y.dtype, device=mu_y.device
-            )
-        latents = latents_noise.to(mu_y.dtype) / temperature + mu_y
-        dec_out = ablation_sampler(denoise_fn, latents, sampler, generator=generator,
-                                   denoise_fn_mid=denoise_fn_mid,
-                                   denoise_fn_cached=denoise_fn_cached)
-        return mu_y * mask3, dec_out * mask3, attn, y_lengths
+                if latents_noise is None:
+                    latents_noise = collectives.randn(
+                        mu_y.shape, generator=generator, dtype=mu_y.dtype, device=mu_y.device
+                    )
+                latents = latents_noise.to(mu_y.dtype) / temperature + mu_y
+            dec_out = ablation_sampler(denoise_fn, latents, sampler, generator=generator,
+                                       denoise_fn_mid=denoise_fn_mid,
+                                       denoise_fn_cached=denoise_fn_cached)
+            return mu_y * mask3, dec_out * mask3, attn, y_lengths
 
     def compute_loss(self, x, x_lengths, y, y_lengths, out_size: int | None = None,
                      spk=None, mask_ratio: float = 0.0, train: bool = True,

@@ -19,6 +19,7 @@ from dex_tts_tpu_torch.models.dit import DTYPES, DiT, DiTConfig
 from dex_tts_tpu_torch.models.layers import Mish, mish, run_in, sinusoidal_pos_emb
 from dex_tts_tpu_torch.models.ref_encoder import TIVAdaptor, TVAdaptor
 from dex_tts_tpu_torch.ops.masks import sequence_mask
+from dex_tts_tpu_torch.utils import profiling
 
 
 class GroupNorm(nn.GroupNorm):
@@ -34,6 +35,8 @@ class GroupNorm(nn.GroupNorm):
         var = (xf**2).mean(dim=(2, 3), keepdim=True) - mean**2
         inv = torch.rsqrt(var + self.eps)
         out = (xg * inv.to(x.dtype) - (mean * inv).to(x.dtype)).reshape(b, c, h, w)
+        if profiling.TRACING:
+            profiling.count_casts(x.dtype, self.weight, self.bias)
         return out * self.weight.to(x.dtype)[:, None, None] + self.bias.to(x.dtype)[:, None, None]
 
 
@@ -114,6 +117,8 @@ class Residual(nn.Module):
         self.fn = Rezero(LinearAttention(dim))
 
     def forward(self, x, dtype):
+        if profiling.TRACING:
+            profiling.count_casts(x.dtype, self.fn.g)
         return x + self.fn.fn(x, dtype) * self.fn.g.to(x.dtype)
 
 
@@ -215,49 +220,51 @@ class DiffusionDenoiser(nn.Module):
         compute dtype, (B, C_mid, H_mid, W_mid); mid_override replaces it,
         skipping the adaptors, their time MLPs and the DiT, so only the
         conv U-Net path runs."""
-        dt = self.compute_dtype
-        channels = [mu, x]
-        if not self.use_style and self.n_spks > 1:
-            s = self.spk_mlp(spk)
-            channels.append(s[:, :, None].expand(-1, -1, x.shape[-1]))
-        h = torch.stack(channels, dim=1).to(dt)
-        mask4 = mask[:, None].to(dt)  # (B, 1, 1, W)
+        with profiling.span("denoiser", x.device):
+            dt = self.compute_dtype
+            channels = [mu, x]
+            if not self.use_style and self.n_spks > 1:
+                s = self.spk_mlp(spk)
+                channels.append(s[:, :, None].expand(-1, -1, x.shape[-1]))
+            h = torch.stack(channels, dim=1).to(dt)
+            mask4 = mask[:, None].to(dt)  # (B, 1, 1, W)
 
-        t_init = sinusoidal_pos_emb(t, self.dim, self.pe_scale)
-        t_unet = self.mlp(t_init)
+            t_init = sinusoidal_pos_emb(t, self.dim, self.pe_scale)
+            t_unet = self.mlp(t_init)
 
-        hiddens = []
-        masks = [mask4]
-        for res1, res2, attn, down in self.downs:
-            m = masks[-1]
-            h = res1(h, m, t_unet, dt)
-            h = res2(h, m, t_unet, dt)
-            h = attn(h, dt)
-            hiddens.append(h)
-            h = h * m if isinstance(down, nn.Identity) else down(h * m, dt)
-            masks.append(m[:, :, :, ::2])
-        masks = masks[:-1]
-        mask_mid = masks[-1]
+            hiddens = []
+            masks = [mask4]
+            for res1, res2, attn, down in self.downs:
+                m = masks[-1]
+                h = res1(h, m, t_unet, dt)
+                h = res2(h, m, t_unet, dt)
+                h = attn(h, dt)
+                hiddens.append(h)
+                h = h * m if isinstance(down, nn.Identity) else down(h * m, dt)
+                masks.append(m[:, :, :, ::2])
+            masks = masks[:-1]
+            mask_mid = masks[-1]
 
-        if mid_override is not None:
-            h = mid_override.to(dt)
-        else:
-            if self.use_style:
-                t_adap = self.mlp_adap(t_init)
-                t_sty = self.mlp_adap_sty(t_init)
-                sty_mask = sequence_mask(sty_lengths, sty.shape[1]).float()
-                h = self.tv_adaptor(h, mask_mid, sty, sty_mask, t_sty[:, None, :])
-                h = self.tiv_adaptor(h, ref, t_adap[:, None, :])
-            h = self.vit(h, mask_mid, t, train=train, mask_ratio=mask_ratio).to(dt)
-        mid = h
+            if mid_override is not None:
+                h = mid_override.to(dt)
+            else:
+                with profiling.span("dit", x.device):
+                    if self.use_style:
+                        t_adap = self.mlp_adap(t_init)
+                        t_sty = self.mlp_adap_sty(t_init)
+                        sty_mask = sequence_mask(sty_lengths, sty.shape[1]).float()
+                        h = self.tv_adaptor(h, mask_mid, sty, sty_mask, t_sty[:, None, :])
+                        h = self.tiv_adaptor(h, ref, t_adap[:, None, :])
+                    h = self.vit(h, mask_mid, t, train=train, mask_ratio=mask_ratio).to(dt)
+            mid = h
 
-        for (res1, res2, attn, up), m in zip(self.ups, reversed(masks[1:])):
-            h = torch.cat([h, hiddens.pop()], dim=1)
-            h = res1(h, m, t_unet, dt)
-            h = res2(h, m, t_unet, dt)
-            h = attn(h, dt)
-            h = up(h * m, dt)
+            for (res1, res2, attn, up), m in zip(self.ups, reversed(masks[1:])):
+                h = torch.cat([h, hiddens.pop()], dim=1)
+                h = res1(h, m, t_unet, dt)
+                h = res2(h, m, t_unet, dt)
+                h = attn(h, dt)
+                h = up(h * m, dt)
 
-        h = self.final_block(h, mask4, dt)
-        out = (run_in(self.final_conv, h * mask4, dt) * mask4).float()[:, 0]
-        return (out, mid) if return_mid else out
+            h = self.final_block(h, mask4, dt)
+            out = (run_in(self.final_conv, h * mask4, dt) * mask4).float()[:, 0]
+            return (out, mid) if return_mid else out

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from dex_tts_tpu_torch.models.dit import DTYPES
 from dex_tts_tpu_torch.models.layers import run_in
 from dex_tts_tpu_torch.ops.snake import depthwise, kaiser_sinc_filter, snake_antialias
+from dex_tts_tpu_torch.utils import profiling
 
 CONV_IMPLS = ("auto", "plain", "packed")
 UPSAMPLE_IMPLS = ("conv_transpose", "subpixel")
@@ -128,6 +129,8 @@ class SnakeActivation1d(nn.Module):
         if self.logscale:
             alpha, beta = torch.exp(alpha), torch.exp(beta)
         # (C,)-sized: cast to the activation dtype, as the JAX package does
+        if profiling.TRACING and not self.logscale:
+            profiling.count_casts(x.dtype, alpha)
         alpha = alpha.to(x.dtype)
         inv_beta = (1.0 / (beta + 1e-9)).to(x.dtype)
         y = snake_antialias(x.transpose(1, 2), alpha, inv_beta, use_pallas=self.use_pallas,
@@ -225,6 +228,8 @@ class BigVGANGenerator(nn.Module):
         x = run_in(self.conv_pre, mel, dt)
         for i, (up,) in enumerate(self.ups):
             dt = DTYPES[self.stage_dtypes[i]]
+            if profiling.TRACING:
+                profiling.count_casts(dt, up.weight, up.bias)
             x = F.conv_transpose1d(x.to(dt), up.weight.to(dt), up.bias.to(dt),
                                    up.stride, up.padding)
             acc = None

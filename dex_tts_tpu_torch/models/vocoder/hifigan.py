@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from dex_tts_tpu_torch.models.dit import DTYPES
 from dex_tts_tpu_torch.models.layers import run_in
+from dex_tts_tpu_torch.utils import profiling
 
 LRELU_SLOPE = 0.1
 
@@ -98,6 +99,8 @@ class HiFiGANGenerator(nn.Module):
         n_k = len(cfg.resblock_kernel_sizes)
         x = run_in(self.conv_pre, mel, dt)
         for i, up in enumerate(self.ups):
+            if profiling.TRACING:
+                profiling.count_casts(dt, up.weight, up.bias)
             x = F.conv_transpose1d(
                 F.leaky_relu(x, LRELU_SLOPE), up.weight.to(dt), up.bias.to(dt),
                 up.stride, up.padding,

@@ -30,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dex_tts_tpu_torch.parallel.collectives import all_reduce_, gather_dim
+from dex_tts_tpu_torch.utils import profiling
 
 # weight (out, in) split on the output axis; the bias split alike
 COLUMN_RULES = (
@@ -132,6 +133,8 @@ class TensorParallelLinear(nn.Module):
     def forward(self, x, dtype: torch.dtype | None = None):
         w, b = self.weight, self.bias
         if dtype is not None:
+            if profiling.TRACING:
+                profiling.count_casts(dtype, w, b)
             x, w = x.to(dtype), w.to(dtype)
             b = None if b is None else b.to(dtype)
         x = _CopyToGroup.apply(x, self.group)

@@ -44,7 +44,7 @@ from dex_tts_tpu_torch.parallel.mesh import shard_rows
 from dex_tts_tpu_torch.parallel.tp import shard_tensor_parallel
 from dex_tts_tpu_torch.text import CMUDict, text_to_sequence
 from dex_tts_tpu_torch.text.symbols import BLANK_ID
-from dex_tts_tpu_torch.utils import intersperse, resolve_device
+from dex_tts_tpu_torch.utils import intersperse, profiling, resolve_device
 
 HOP_LENGTH = 256
 SAMPLE_RATE = 22050
@@ -163,46 +163,47 @@ class Synthesizer:
     def prepare_batch(self, texts: Sequence[str], spk_ids=None, ref_feats=None):
         """Token ids, lengths and style inputs of one batch, bucketed and
         padded → (inputs dict of device tensors, true batch size)."""
-        seqs = [self.prepare_text(t) for t in texts]
-        b = len(seqs)
-        x_max = _bucket(max(len(s) for s in seqs), self.x_quantum)
-        x = np.zeros((b, x_max), np.int64)
-        x_lengths = np.zeros((b,), np.int64)
-        for i, s in enumerate(seqs):
-            x[i, : len(s)] = s
-            x_lengths[i] = len(s)
-        inputs = {"x": x, "x_lengths": x_lengths}
-        if spk_ids is not None:
-            inputs["spk"] = np.asarray(spk_ids, np.int64)
-        if ref_feats is not None:
-            # mel and lf0 can disagree in length for pre-extracted
-            # features: truncate each pair to the common length
-            pairs = [
-                (m[:, : min(m.shape[1], len(l))], l[: min(m.shape[1], len(l))])
-                for m, l in ref_feats
-            ]
-            t_max = _bucket(max(m.shape[1] for m, _ in pairs), self.y_quantum, 4)
-            ref = np.zeros((b, pairs[0][0].shape[0], t_max), np.float32)
-            lf0 = np.zeros((b, t_max), np.float32)
-            lens = np.zeros((b,), np.int64)
-            for i, (m, l) in enumerate(pairs):
-                ref[i, :, : m.shape[1]] = m
-                lf0[i, : len(l)] = l
-                lens[i] = m.shape[1]
-            inputs.update(ref=ref, ref_lengths=lens, sty=ref, sty_lengths=lens,
-                          lf0=lf0, lf0_lengths=lens)
-        b_pad = 1 << (b - 1).bit_length() if self.pad_batches else b
-        if self.mesh is not None:  # every dp rank takes as many rows
-            b_pad = -(-b_pad // self.mesh.dp_size) * self.mesh.dp_size
-        if b_pad != b:
-            # repeat the last row: padding stays a valid input; the extra
-            # rows are dropped from the results
-            inputs = {
-                k: np.concatenate([v, np.repeat(v[-1:], b_pad - b, axis=0)])
-                for k, v in inputs.items()
-            }
-        inputs = {k: torch.from_numpy(v).to(self.device) for k, v in inputs.items()}
-        return inputs, b
+        with profiling.span("tts.prep"):
+            seqs = [self.prepare_text(t) for t in texts]
+            b = len(seqs)
+            x_max = _bucket(max(len(s) for s in seqs), self.x_quantum)
+            x = np.zeros((b, x_max), np.int64)
+            x_lengths = np.zeros((b,), np.int64)
+            for i, s in enumerate(seqs):
+                x[i, : len(s)] = s
+                x_lengths[i] = len(s)
+            inputs = {"x": x, "x_lengths": x_lengths}
+            if spk_ids is not None:
+                inputs["spk"] = np.asarray(spk_ids, np.int64)
+            if ref_feats is not None:
+                # mel and lf0 can disagree in length for pre-extracted
+                # features: truncate each pair to the common length
+                pairs = [
+                    (m[:, : min(m.shape[1], len(l))], l[: min(m.shape[1], len(l))])
+                    for m, l in ref_feats
+                ]
+                t_max = _bucket(max(m.shape[1] for m, _ in pairs), self.y_quantum, 4)
+                ref = np.zeros((b, pairs[0][0].shape[0], t_max), np.float32)
+                lf0 = np.zeros((b, t_max), np.float32)
+                lens = np.zeros((b,), np.int64)
+                for i, (m, l) in enumerate(pairs):
+                    ref[i, :, : m.shape[1]] = m
+                    lf0[i, : len(l)] = l
+                    lens[i] = m.shape[1]
+                inputs.update(ref=ref, ref_lengths=lens, sty=ref, sty_lengths=lens,
+                              lf0=lf0, lf0_lengths=lens)
+            b_pad = 1 << (b - 1).bit_length() if self.pad_batches else b
+            if self.mesh is not None:  # every dp rank takes as many rows
+                b_pad = -(-b_pad // self.mesh.dp_size) * self.mesh.dp_size
+            if b_pad != b:
+                # repeat the last row: padding stays a valid input; the extra
+                # rows are dropped from the results
+                inputs = {
+                    k: np.concatenate([v, np.repeat(v[-1:], b_pad - b, axis=0)])
+                    for k, v in inputs.items()
+                }
+            inputs = {k: torch.from_numpy(v).to(self.device) for k, v in inputs.items()}
+            return inputs, b
 
     @torch.no_grad()
     def predict_frames(self, inputs: dict, length_scale=1.0) -> int:
@@ -216,8 +217,9 @@ class Synthesizer:
     def frame_bucket(self, inputs: dict, length_scale=1.0, max_frames: int = 2048) -> int:
         """The static frame count synthesis runs at for this batch (the
         largest over the mesh's ranks)."""
-        n_frames = collectives.agree_max(self.predict_frames(inputs, length_scale), self.mesh)
-        return fix_len_compatibility(min(_bucket(n_frames, self.y_quantum, 8), max_frames))
+        with profiling.span("tts.prepass"):
+            n_frames = collectives.agree_max(self.predict_frames(inputs, length_scale), self.mesh)
+            return fix_len_compatibility(min(_bucket(n_frames, self.y_quantum, 8), max_frames))
 
     @torch.no_grad()
     def tts(
@@ -254,30 +256,38 @@ class Synthesizer:
         sampler = dataclasses.replace(self.sampler, **overrides) if overrides else self.sampler
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
-        if ref_wavs is not None:
-            ref_feats = [self.prepare_reference(p) for p in ref_wavs]
+        with profiling.span("tts", batch=len(texts), steps=sampler.num_steps,
+                            solver=sampler.solver):
+            if ref_wavs is not None:
+                ref_feats = [self.prepare_reference(p) for p in ref_wavs]
 
-        inputs, b = self.prepare_batch(texts, spk_ids, ref_feats)
-        if self.mesh is not None:
-            inputs = shard_rows(inputs, self.mesh)
-        y_len = self.frame_bucket(inputs, length_scale, max_frames)
-        cond = {k: v for k, v in inputs.items() if k not in ("x", "x_lengths")}
-        with_voc = vocode and self.vocoder is not None
-        with collectives.data_parallel(self.mesh):
-            _, mel, _, y_lengths = self.model.synthesize(
-                inputs["x"], inputs["x_lengths"], y_max_length=y_len, sampler=sampler,
-                temperature=temperature, length_scale=length_scale,
-                generator=generator, **cond,
-            )
-            wavs = collectives.gather_rows(self.vocoder(mel)).cpu().numpy() if with_voc else None
-            mels = collectives.gather_rows(mel).cpu().numpy()
-            lens = collectives.gather_rows(y_lengths).cpu().numpy()
-        results = []
-        for i in range(b):
-            item = {"mel": mels[i, :, : lens[i]].copy(), "n_frames": int(lens[i])}
-            if with_voc:
-                item["wav"] = wavs[i, : lens[i] * self.hop].copy()
-            results.append(item)
+            inputs, b = self.prepare_batch(texts, spk_ids, ref_feats)
+            profiling.note(padded_batch=inputs["x"].shape[0], text_bucket=inputs["x"].shape[1])
+            if self.mesh is not None:
+                inputs = shard_rows(inputs, self.mesh)
+            y_len = self.frame_bucket(inputs, length_scale, max_frames)
+            profiling.note(frame_bucket=y_len)
+            cond = {k: v for k, v in inputs.items() if k not in ("x", "x_lengths")}
+            with_voc = vocode and self.vocoder is not None
+            with collectives.data_parallel(self.mesh):
+                _, mel, _, y_lengths = self.model.synthesize(
+                    inputs["x"], inputs["x_lengths"], y_max_length=y_len, sampler=sampler,
+                    temperature=temperature, length_scale=length_scale,
+                    generator=generator, **cond,
+                )
+                if with_voc:
+                    with profiling.span("tts.vocoder", self.device):
+                        wav = self.vocoder(mel)
+                with profiling.span("tts.readback"):
+                    wavs = collectives.gather_rows(wav).cpu().numpy() if with_voc else None
+                    mels = collectives.gather_rows(mel).cpu().numpy()
+                    lens = collectives.gather_rows(y_lengths).cpu().numpy()
+                    results = []
+                    for i in range(b):
+                        item = {"mel": mels[i, :, : lens[i]].copy(), "n_frames": int(lens[i])}
+                        if with_voc:
+                            item["wav"] = wavs[i, : lens[i] * self.hop].copy()
+                        results.append(item)
         return results
 
     def tts_stream(

@@ -55,7 +55,7 @@ def test_every_module_imports_without_jax():
             "dex_tts_tpu_torch.parallel.runtime", "dex_tts_tpu_torch.parallel.tp",
             "dex_tts_tpu_torch.dryrun", "dex_tts_tpu_torch.models.xpos",
             "dex_tts_tpu_torch.utils.mfu", "dex_tts_tpu_torch.utils.profiling",
-            "dex_tts_tpu_torch.utils.logging", "dex_tts_tpu_torch.entry",
+            "dex_tts_tpu_torch.entry",
             "dex_tts_tpu_torch.utils.config", "dex_tts_tpu_torch.export"} <= set(_modules())
 
 

@@ -1,12 +1,11 @@
 """The port's bench tooling: the FLOP count and MFU (`utils/mfu.py`), the
-tracer and step timer (`utils/profiling.py`), the metrics logger
-(`utils/logging.py`) and the full-size entry (`entry.py`), on the CPU.
+profiler's trace (`utils/profiling.py`) and the full-size entry
+(`entry.py`), on the CPU.
 The FLOP formulas of what the counter cannot see (the kernels, cuDNN's
 RNN) are held against the count of what the CPU computes instead."""
 
 import json
 import os
-import sys
 
 import numpy as np
 import pytest
@@ -21,8 +20,8 @@ from dex_tts_tpu_torch.models.tts import build_tts  # noqa: E402
 from dex_tts_tpu_torch.ops.attention import attention_flops, attention_reference  # noqa: E402
 from dex_tts_tpu_torch.ops.snake import snake_antialias_reference, snake_flops  # noqa: E402
 from dex_tts_tpu_torch.utils import mfu  # noqa: E402
-from dex_tts_tpu_torch.utils.logging import MetricsLogger  # noqa: E402
-from dex_tts_tpu_torch.utils.profiling import StepTimer, annotate, trace  # noqa: E402
+from dex_tts_tpu_torch.utils import profiling  # noqa: E402
+from dex_tts_tpu_torch.utils.profiling import span, trace  # noqa: E402
 from tests.torch_port_util import style_inputs, t, tiny_cfg  # noqa: E402
 
 
@@ -174,65 +173,19 @@ def test_no_peak_and_no_mfu_without_a_known_card(monkeypatch):
         assert mfu.mfu(peak or 1.0, 2.0, "cuda") == (0.5 if peak else None)
 
 
-def test_metrics_logger(tmp_path):
-    """tests/test_utils_extra.py's case for the JAX package's logger."""
-    logger = MetricsLogger(str(tmp_path))
-    logger.log(1, {"loss": 2.5}, prefix="train/")
-    logger.log(2, {"loss": 2.0}, prefix="train/")
-    lines = [json.loads(line) for line in open(os.path.join(tmp_path, "metrics.jsonl"))]
-    assert len(lines) == 2
-    assert lines[0]["step"] == 1
-    assert lines[1]["train/loss"] == 2.0
-    logger.close()
-
-
-def test_metrics_logger_backends_are_imported_when_asked(tmp_path, monkeypatch):
-    monkeypatch.setitem(sys.modules, "wandb", None)  # not installed
-    with pytest.raises(ImportError):
-        MetricsLogger(str(tmp_path), backend="wandb")
-    with pytest.raises(ValueError, match="'tensorboard'"):
-        MetricsLogger(str(tmp_path), backend="tensorboard")
-
-    class Run:
-        logged = []
-
-        def log(self, values, step):
-            self.logged.append((step, values))
-
-        def finish(self):
-            self.logged.append("finished")
-
-    fake = type(sys)("wandb")
-    fake.init = lambda **kw: Run()
-    monkeypatch.setitem(sys.modules, "wandb", fake)
-    logger = MetricsLogger(str(tmp_path), backend="wandb", project="p")
-    logger.log(3, {"loss": 1.5})
-    logger.close()
-    assert Run.logged == [(3, {"loss": 1.5}), "finished"]
-
-
-def test_step_timer():
-    """tests/test_utils_extra.py's case for the JAX package's timer."""
-    timer = StepTimer(warmup=1)
-    for _ in range(4):
-        with timer:
-            pass
-    assert timer.total_steps == 4
-    assert len(timer.times) == 3
-    assert "steps" in timer.summary()
-    assert StepTimer(warmup=5).summary() == "0 steps (all warmup)"
-    with annotate("span"):
-        pass
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
-    with trace(str(tmp_path / "prof")) as prof:
-        with annotate("the_span"):
-            torch.randn(8, 8) @ torch.randn(8, 8)
+    """The trace turns the program's spans on inside it, and only there."""
+    with profiling.tracing(False):
+        with trace(str(tmp_path / "prof")) as prof:
+            with span("the_span"):
+                torch.randn(8, 8) @ torch.randn(8, 8)
+        assert not profiling.TRACING
     assert os.path.dirname(prof.trace_path) == str(tmp_path / "prof")
     with open(prof.trace_path) as f:
         events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "the_span" for e in events)
+    assert any(e.get("name") == "the_span" and e.get("cat") == "user_annotation"
+               for e in events)
+    assert profiling.calls()[-1].root.name == "the_span"
 
 
 def test_entry_builds_at_full_width_on_the_cpu():
