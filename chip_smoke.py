@@ -830,6 +830,114 @@ def phase_snake():
     return report
 
 
+# K5: the U-Net Block epilogues of one denoiser call in both benchmark
+# cells (batch 16, 768-frame bucket, dec_dim 64, dim_mults (1, 2)): shape
+# → Blocks at it (13 in all)
+GN_CELL_BLOCKS = {(16, 64, 80, 768): 5, (16, 128, 40, 384): 4, (16, 64, 40, 384): 4}
+GN_MORE_SHAPES = [
+    (1, 64, 80, 64),     # a 64-frame bucket at batch 1: 8 slabs
+    (4, 64, 80, 64),     # batch 4: 32 slabs
+    (16, 64, 80, 2048),  # a 2048-frame bucket
+    (3, 64, 80, 77),     # W not a multiple of a load: loads cross frame rows
+    (2, 16, 5, 7),       # H·W odd: one element per load
+]
+
+
+def gn_inputs(shape, dtype, seed, shift=True, strided_mask=False):
+    """h as a convolution leaves it, f32 affine parameters near the
+    trained ones, a mask with a masked tail on every item but the first
+    (a strided view, as the U-Net's lower resolutions take it, if asked),
+    and the time MLP's f32 shift or None."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, c, _, w = shape
+    x = (1.5 * torch.randn(shape, generator=g, device="cuda") + 0.3).to(dtype)
+    weight = 1 + 0.2 * torch.randn(c, generator=g, device="cuda")
+    bias = 0.2 * torch.randn(c, generator=g, device="cuda")
+    wide = 2 * w if strided_mask else w
+    lengths = torch.randint(wide // 2, wide + 1, (b,), generator=g, device="cuda")
+    lengths[0] = wide
+    mask = (torch.arange(wide, device="cuda")[None] < lengths[:, None]).to(dtype)[:, None, None]
+    if strided_mask:
+        mask = mask[..., ::2]
+    return x, weight, bias, mask, (torch.randn(b, c, generator=g, device="cuda") if shift else None)
+
+
+def phase_group_norm():
+    """K5 (`ops/group_norm.group_norm_mish`) against the plain version on
+    the card, in bf16 and f32: the cells' Block shapes, a 64-frame bucket
+    at batch 1 and 4, a 2048-frame bucket, loads across frame rows and
+    single-element loads; masked tails, contiguous and strided masks, with
+    and without the shift. The truth is the plain version in f32 on the
+    same inputs; the plain version in the input dtype (the earlier design)
+    is measured against it too. Then times at every shape: K5, the plain
+    version, and the bound (h read once, y written once)."""
+    from dex_tts_tpu_torch.ops import group_norm as gn
+    from dex_tts_tpu_torch.ops.kernels import resource_usage
+
+    gn._kernel()  # builds group_norm.cu
+    build = resource_usage("group_norm.cu")
+    for line in build:
+        log(f"K5 ptxas {line}")
+    spilled = [line for line in build
+               if "0 bytes spill stores" not in line or "0 bytes spill loads" not in line]
+    shapes = list(GN_CELL_BLOCKS) + GN_MORE_SHAPES
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    report = {}
+    # bf16: one rounding of the result, ≤ 2^-8 of it, over the f32 truth;
+    # f32: the sums' order, rsqrtf and __expf (a few ulp)
+    tolerances = {torch.bfloat16: (2**-8, 1e-5), torch.float32: (2e-5, 2e-5)}
+    for dtype, (rtol, atol) in tolerances.items():
+        worst = plain_worst = 0.0
+        timings = []
+        for i, shape in enumerate(shapes):
+            x, weight, bias, mask, shift = gn_inputs(shape, dtype, seed=i, shift=i % 2 == 0,
+                                                     strided_mask=i % 3 == 1)
+            want = gn.group_norm_mish_reference(x.float(), weight, bias, mask.float(), shift)
+            plain = gn.group_norm_mish_reference(x, weight, bias, mask, shift)
+            masked = (mask == 0).expand_as(x)
+            tail = torch.zeros_like(x) if shift is None else shift[:, :, None, None].expand_as(x)
+            b, c, h, w = shape
+            chunks = gn.two_pass_chunks(b * 8, c // 8 * h * w // gn.vector_width(shape, dtype),
+                                        sms)
+            before = gn.group_norm_mish.launches
+            got = gn.group_norm_mish(x, weight, bias, mask, shift)
+            torch.cuda.synchronize()
+            assert gn.group_norm_mish.launches - before == 2
+            err = (got.float() - want).abs()
+            ratio = (err / (rtol * want.abs() + atol)).max().item()
+            assert got.dtype == dtype and math.isfinite(ratio) and ratio <= 1, (
+                dtype, shape, ratio)
+            assert torch.equal(got[masked], tail.to(dtype)[masked]), (dtype, shape)
+            worst = max(worst, err.max().item())
+            plain_err = (plain.float() - want).abs().max().item()
+            plain_worst = max(plain_worst, plain_err)
+            row = dict(shape=list(shape), chunks=chunks)
+            row["ms"] = time_ms(lambda: gn.group_norm_mish(x, weight, bias, mask, shift), 20)
+            row["plain_ms"] = time_ms(lambda: gn.group_norm_mish_reference(x, weight, bias, mask,
+                                                                           shift), 5)
+            row["bound_ms"] = 2 * x.numel() * x.element_size() / PEAK_BYTES * 1e3
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            timings.append(row)
+            log(f"K5 {dtype} {shape} ({chunks} chunks a slab): max_abs_err"
+                f" {err.max().item():.3e} (plain {plain_err:.3e}); {row['ms']:.4f} ms, plain"
+                f" {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms,"
+                f" {100 * row['bound_share']:.1f}% of the bound")
+        # one denoiser call of the cells: each Block shape's time × its Blocks
+        per_step = {key: sum(r[key] * GN_CELL_BLOCKS[tuple(r["shape"])] for r in timings
+                             if tuple(r["shape"]) in GN_CELL_BLOCKS)
+                    for key in ("ms", "plain_ms", "bound_ms")}
+        report[dtype] = dict(max_abs_err=worst, plain_max_abs_err=plain_worst,
+                             tolerance=f"rtol {rtol:.3g} atol {atol:.3g} against plain f32",
+                             shapes=timings, build=build, bound_by="bytes", library_ms=None,
+                             **per_step)
+        log(f"K5 {dtype}, one denoiser call of the cells (13 Blocks): kernel {per_step['ms']:.4f}"
+            f" ms, plain {per_step['plain_ms']:.4f} ms, bound {per_step['bound_ms']:.4f} ms,"
+            f" {100 * per_step['bound_ms'] / per_step['ms']:.1f}% of the bound; largest error"
+            f" {worst:.3e} (plain {plain_worst:.3e})")
+    assert build and not spilled, spilled
+    return report
+
+
 # BigVGAN's snake inputs (B, T, C) in a vocoder train step at the CLI's
 # batch 16 × segment 8192 (32 mel frames), with the same launches per stage
 SNAKE_TRAIN_STAGES = [(16, 128, 768), (16, 512, 384), (16, 1024, 192),
@@ -3083,11 +3191,15 @@ def phase_parallel(card: str, directory: str) -> dict:
                 cli=dict(first=first, resumed=resumed))
 
 
+# (label, argv, K1, K2, K5 launches per timed call): K5, two launches,
+# for each of the 13 U-Net Blocks per denoiser call
+K5_PER_DENOISER_CALL = 13 * 2
 BENCH_RUNS = [
-    ("default", [], 200, 0),
-    ("dpmpp2m_16", ["--solver", "dpmpp2m", "--steps", "16"], 64, 0),
-    ("dit_cache_5", ["--dit_cache", "5"], 40, 0),
-    ("gedex_bigvgan", ["--family", "gedex", "--vocoder", "bigvgan"], 200, SNAKE_LAUNCHES),
+    ("default", [], 200, 0, K5_PER_DENOISER_CALL * 50),
+    ("dpmpp2m_16", ["--solver", "dpmpp2m", "--steps", "16"], 64, 0, K5_PER_DENOISER_CALL * 16),
+    ("dit_cache_5", ["--dit_cache", "5"], 40, 0, K5_PER_DENOISER_CALL * 50),
+    ("gedex_bigvgan", ["--family", "gedex", "--vocoder", "bigvgan"], 200, SNAKE_LAUNCHES,
+     K5_PER_DENOISER_CALL * 50),
 ]
 PROFILED = {"default": "flash_fwd_bf16", "train_default": "mas_warp"}  # a kernel each trace names
 
@@ -3179,14 +3291,15 @@ def phase_bench(card: str) -> dict:
     from dex_tts_tpu_torch import bench, bench_train
 
     lines = {}
-    for label, argv, k1, k2 in BENCH_RUNS:
+    for label, argv, k1, k2, k5 in BENCH_RUNS:
         with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
             line = bench.main(argv + (["--profile", tmp] if label in PROFILED else []))
             if label in PROFILED:
                 kernels = trace_kernels(tmp)
                 assert any(PROFILED[label] in k for k in kernels), (label, sorted(kernels))
         log(f"[bench {label}] {json.dumps(line)}")
-        assert line["launches"] == {"flash_attention": k1, "snake": k2}, (label, line["launches"])
+        assert line["launches"] == {"flash_attention": k1, "snake": k2, "group_norm": k5}, (
+            label, line["launches"])
         assert math.isfinite(line["value"]) and line["card"] == card, line
         check_mfu(label, line, "tflops_per_dispatch", ("mfu", "mfu_text_to_mel"))
         lines[label] = line
@@ -3245,6 +3358,7 @@ def main():
     route = phase_route()
     snake = phase_snake()
     mas, mas_err = phase_mas()
+    group_norm = phase_group_norm()
     bwd = phase_attention_backward()
     phase_card_vs_cpu()
     snake_f32_run = phase_bigvgan_card_vs_cpu()
@@ -3422,6 +3536,27 @@ def main():
         # gradients bit-equal to the plain version's, times per train step
         "autograd": {str(dt).removeprefix("torch."): v for dt, v in snake_grad.items()},
         "vocoder_step_card_vs_cpu": vocoder_parity,
+        "card": card,
+    }, {
+        "name": "group_norm_mish",
+        "route": "cuda",
+        "source": "dex_tts_tpu_torch/csrc/group_norm.cu",
+        "replaces": None,  # no TPU kernel: XLA fuses the JAX package's GroupNorm + Mish
+        "launches": benches["default"]["launches"]["group_norm"],
+        "launches_by_path": {f"bench_{run[0]}": benches[run[0]]["launches"]["group_norm"]
+                             for run in BENCH_RUNS},
+        "max_abs_err": group_norm[torch.bfloat16]["max_abs_err"],
+        # times: one denoiser call of the cells, Σ over the Block shapes of
+        # (time at the shape × Blocks at it)
+        "ms": group_norm[torch.bfloat16]["ms"],
+        "plain_ms": group_norm[torch.bfloat16]["plain_ms"],
+        "bound_ms": group_norm[torch.bfloat16]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call computes GroupNorm + Mish + mask
+        "per": "denoiser call (13 Blocks at the cells' shapes)",
+        "dtype": "bfloat16",
+        "bf16": group_norm[torch.bfloat16],
+        "f32": group_norm[torch.float32],
         "card": card,
     }]
     log(f"main paths: HiFi-GAN request 1 RTF {hifigan['request_1']['rtf']:.6f}, BigVGAN request 1"

@@ -38,6 +38,7 @@ from dex_tts_tpu_torch.config import build_model, build_vocoder, load_preset
 from dex_tts_tpu_torch.models.edm import SamplerConfig
 from dex_tts_tpu_torch.models.vocoder import BigVGANConfig, HiFiGANConfig
 from dex_tts_tpu_torch.ops.attention import flash_attention
+from dex_tts_tpu_torch.ops.group_norm import group_norm_mish
 from dex_tts_tpu_torch.ops.snake import snake_antialias
 from dex_tts_tpu_torch.utils.device import card_line, resolve_device
 from dex_tts_tpu_torch.utils.mfu import count_flops, extrapolated_scan_flops, mfu, peak_flops_per_chip
@@ -49,7 +50,8 @@ N_STEPS = 50
 TX, TY, T_REF = 96, 768, 256  # tokens, frame bucket, reference frames per item
 TEMPERATURE = 1.5
 PRESETS = {"dex": "vctk_bench", "gedex": "gedex_bench"}
-COUNTERS = {"flash_attention": flash_attention, "snake": snake_antialias}
+COUNTERS = {"flash_attention": flash_attention, "snake": snake_antialias,
+            "group_norm": group_norm_mish}
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -21,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dex_tts_tpu_torch.ops.group_norm import mish
 from dex_tts_tpu_torch.parallel import collectives
 from dex_tts_tpu_torch.parallel.tp import TensorParallelLinear
 from dex_tts_tpu_torch.utils import profiling
@@ -115,11 +116,6 @@ def batch_norm(bn: nn.BatchNorm1d, x, train: bool):
         bn.running_var.mul_(0.99).add_(var.detach(), alpha=1 - 0.99)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     return ((x - mean[None, :, None]) * mul[None, :, None] + bn.bias[None, :, None]).to(x.dtype)
-
-
-def mish(x):
-    """reference: DEX-TTS/model/diffusion.py:11-13."""
-    return x * torch.tanh(F.softplus(x))
 
 
 class Mish(nn.Module):

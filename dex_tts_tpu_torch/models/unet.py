@@ -16,43 +16,32 @@ import torch
 import torch.nn as nn
 
 from dex_tts_tpu_torch.models.dit import DTYPES, DiT, DiTConfig
-from dex_tts_tpu_torch.models.layers import Mish, mish, run_in, sinusoidal_pos_emb
+from dex_tts_tpu_torch.models.layers import Mish, run_in, sinusoidal_pos_emb
 from dex_tts_tpu_torch.models.ref_encoder import TIVAdaptor, TVAdaptor
+from dex_tts_tpu_torch.ops.group_norm import group_norm_mish
 from dex_tts_tpu_torch.ops.masks import sequence_mask
 from dex_tts_tpu_torch.utils import profiling
 
 
-class GroupNorm(nn.GroupNorm):
-    """GroupNorm with f32 per-group statistics, applied in the input dtype
-    (torch semantics: eps inside rsqrt, per-channel affine)."""
-
-    def forward(self, x):
-        b, c, h, w = x.shape
-        g = self.num_groups
-        xg = x.reshape(b, g, c // g, h * w)
-        xf = xg.float()
-        mean = xf.mean(dim=(2, 3), keepdim=True)
-        var = (xf**2).mean(dim=(2, 3), keepdim=True) - mean**2
-        inv = torch.rsqrt(var + self.eps)
-        out = (xg * inv.to(x.dtype) - (mean * inv).to(x.dtype)).reshape(b, c, h, w)
-        if profiling.TRACING:
-            profiling.count_casts(x.dtype, self.weight, self.bias)
-        return out * self.weight.to(x.dtype)[:, None, None] + self.bias.to(x.dtype)[:, None, None]
-
-
 class Block(nn.Module):
-    """conv3x3 → GroupNorm(8) → Mish, masked in/out.
+    """conv3x3 → GroupNorm(8) → Mish, masked in/out; ``shift`` (B, C), the
+    ResnetBlock's time-embedding shift, is added after the mask. The
+    epilogue after the convolution is `group_norm_mish`: the fused kernel
+    on the card, the plain ops elsewhere (f32 per-group statistics, applied
+    in the compute dtype). ``block`` only holds the parameters, under the
+    reference's state-dict names; `forward` applies them.
     reference: DEX-TTS/model/diffusion.py:44-53."""
 
     def __init__(self, dim: int, dim_out: int, groups: int = 8):
         super().__init__()
         self.block = nn.Sequential(
-            nn.Conv2d(dim, dim_out, 3, padding=1), GroupNorm(groups, dim_out, eps=1e-5), Mish()
+            nn.Conv2d(dim, dim_out, 3, padding=1), nn.GroupNorm(groups, dim_out, eps=1e-5)
         )
 
-    def forward(self, x, mask, dtype):
+    def forward(self, x, mask, dtype, shift=None):
         h = run_in(self.block[0], x.to(dtype) * mask.to(dtype), dtype)
-        return mish(self.block[1](h)) * mask.to(h.dtype)
+        norm = self.block[1]
+        return group_norm_mish(h, norm.weight, norm.bias, mask, shift, norm.num_groups, norm.eps)
 
 
 class ResnetBlock(nn.Module):
@@ -69,8 +58,7 @@ class ResnetBlock(nn.Module):
     def forward(self, x, mask, time_emb, dtype):
         x = x.to(dtype)
         mask = mask.to(dtype)
-        h = self.block1(x, mask, dtype)
-        h = h + self.mlp(time_emb)[:, :, None, None].to(dtype)
+        h = self.block1(x, mask, dtype, shift=self.mlp(time_emb))
         h = self.block2(h, mask, dtype)
         if isinstance(self.res_conv, nn.Conv2d):
             return h + run_in(self.res_conv, x * mask, dtype)

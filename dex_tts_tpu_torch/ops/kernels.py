@@ -6,7 +6,7 @@ library with a plain C interface, loaded with ctypes. Libraries go to
 so a changed source rebuilds and an unchanged one is reused; nvcc's
 report (ptxas's registers, spills and shared memory per kernel) is kept
 beside the library. Nothing is built at import time: the first launch
-builds.
+of any kernel builds every missing library of `SOURCES`, all at once.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("flash_attention.cu", "snake.cu", "mas.cu")
+SOURCES = ("flash_attention.cu", "snake.cu", "mas.cu", "group_norm.cu")
 
 
 def _nvcc() -> str:
@@ -102,7 +102,7 @@ def build(source: str) -> Path:
 
 @functools.cache
 def _load(source: str) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build(source)))
+    return ctypes.CDLL(str(build_all(SOURCES if source in SOURCES else (source,))[source]))
 
 
 def load_library(source: str, device=None) -> ctypes.CDLL:

@@ -168,7 +168,8 @@ def test_bench_line_on_cpu(argv, monkeypatch, capsys, tmp_path):
     assert len(printed) == 1 and printed[0].startswith("{")
     assert json_keys(os.path.join(REPO, "bench.py")) <= set(line)
     assert line["device"] == "cpu" and line["card"] is None and line["vs_baseline"] is None
-    assert line["launches"] == {"flash_attention": 0, "snake": 0}  # kernels launch on CUDA only
+    # kernels launch on CUDA only
+    assert line["launches"] == {"flash_attention": 0, "snake": 0, "group_norm": 0}
     assert line["value"] > 0 and np.isfinite(line["text_to_mel_rtf"])
     assert line["tflops_per_dispatch"] > 0
     assert line["mfu"] is line["mfu_text_to_mel"] is line["peak_tflops"] is None
