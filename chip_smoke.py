@@ -9,11 +9,12 @@ Phases (each asserts; any failure exits non-zero):
   2. hold each kernel against its plain PyTorch version on the card, and
      time kernel, plain version and the library yardstick (where one
      PyTorch call computes the same function) with CUDA events:
-     flash attention at the main path's shape and at ragged lengths; the
-     anti-aliased snake in bf16 (polynomial sin², the TPU's fold kernel)
-     and f32 (exact sine, the TPU's tiled kernel) at BigVGAN's six stage
-     shapes of request 1, at ragged T and C, at T on the kernel's
-     schedule boundaries, at k = 8 and 16, and on contiguous, offset
+     flash attention at the main path's shape, at the 44.1 kHz cell's
+     6144 tokens and at ragged lengths; the anti-aliased snake in bf16
+     (polynomial sin², the TPU's fold kernel) and f32 (exact sine, the
+     TPU's tiled kernel) at BigVGAN's six stage shapes of request 1 and
+     BigVGAN-v2's six of the 44.1 kHz cell, at ragged T and C, at T on
+     the kernel's schedule boundaries, at k = 8 and 16, and on contiguous, offset
      (unaligned) and gapped (not dense) inputs; the library yardstick pinned to the SDPA
      backend the default dispatch picks, with its error against the plain
      version; f32 bounds at the faster of FMA and 3xTF32;
@@ -142,6 +143,15 @@ The YAML configs and the export add:
      (K3) against the trained file loaded the same way; `python -m
      dex_tts_tpu_torch.synthesize --config` with vctk.yaml's full-width
      DeX from a checkpoint on disk (K1 200 and K2 109 per call).
+The 44.1 kHz pipeline adds:
+ 15. `phase_44k`: configs/dex_vctk_bigvgan_v2_44k.yaml equal to its
+     preset, its vocoder read from the release's config.json beside
+     ``gen_last.pth``; `python -m dex_tts_tpu_torch.synthesize --config`
+     on it with a seeded 128-band DeX from a checkpoint on disk and a
+     seeded BigVGAN-v2 (no ``conv_post.bias``, clamp head),
+     from text and reference WAVs at 16 kHz and 44.1 kHz, and a paragraph
+     with --long: 44,100 Hz WAVs of 512 samples a frame (and 0.2 s pauses
+     at 44.1 kHz), K1 64, K2 109 and K5 416 per call at 16 dpmpp2m steps.
 The last two lines are the `kernels` JSON line and the device JSON line.
 Needs one card; exits non-zero without CUDA.
 """
@@ -168,6 +178,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 MAIN_SHAPE = (16, 3840, 2, 128)  # (B, T, H, hd): 16 × 768 frames, 20 × 192 patches
+V2_44K_SHAPE = (16, 6144, 2, 128)  # the 128-band DeX of the 44.1 kHz cell: 32 × 192 patches
 TRAIN_ATTN_SHAPE = (32, 880, 2, 128)  # the ESD train step: 32 × 172-frame crops, 20 × 44 patches
 MAS_SHAPES = [(32, 96, 256), (32, 256, 1024)]  # (B, Tx, Ty): bench_train's batch, ESD's long buckets
 MEL_ATOL = 1e-3  # card vs CPU, f32 with TF32 off
@@ -178,6 +189,10 @@ WAV_ATOL = 1e-4  # BigVGAN card vs CPU, f32 with TF32 off
 SNAKE_STAGES = [(16, 3072, 768), (16, 12288, 384), (16, 24576, 192),
                 (16, 49152, 96), (16, 98304, 48), (16, 196608, 24)]
 SNAKE_STAGE_LAUNCHES = [18, 18, 18, 18, 18, 19]
+# BigVGAN-v2 44 kHz 512x at 16 × 768 frames (rates 8, 4, 2, 2, 2, 2), the
+# same launches per stage
+SNAKE_STAGES_V2_44K = [(16, 6144, 768), (16, 24576, 384), (16, 49152, 192),
+                       (16, 98304, 96), (16, 196608, 48), (16, 393216, 24)]
 SNAKE_LAUNCHES = sum(SNAKE_STAGE_LAUNCHES)  # 109
 # random weights: the duration predictor is pinned to 4 frames per token
 # (blanks included, so 8 frames ≈ 93 ms per phoneme); the longest of
@@ -373,7 +388,8 @@ def phase_kernels():
     report = {}
     for dtype, tol_name in ((torch.bfloat16, "2e-2 x max|o|"), (torch.float32, "atol 1e-4")):
         worst = 0.0
-        for shape in [MAIN_SHAPE, (2, 1, 2, 128), (2, 63, 2, 128), (2, 777, 2, 128)]:
+        for shape in [MAIN_SHAPE, (2, 1, 2, 128), (2, 63, 2, 128), (2, 777, 2, 128),
+                      V2_44K_SHAPE]:
             q, k, v = qkv_views(*shape, dtype, seed=shape[1])
             scale = shape[3] ** -0.5
             got = flash_attention(q, k, v, scale)
@@ -786,7 +802,8 @@ def phase_snake():
                  + [(shape, 12, "bct") for shape in boundary]
                  + [((2, 4097, 3), k, "bct") for k in (8, 16)]
                  + [((2, 777, 24), 12, "offset"), ((4, 4096, 96), 12, "offset"),
-                    ((2, 4097, 3), 12, "gapped")])
+                    ((2, 4097, 3), 12, "gapped")]
+                 + [(shape, 12, "bct") for shape in SNAKE_STAGES_V2_44K])
         for i, (shape, k, layout) in enumerate(cases):
             x, al, ib = snake_inputs(*shape, dtype, seed=i, layout=layout)
             got = snake_antialias(x, al, ib, kernel_size=k, impl=impl)
@@ -834,6 +851,8 @@ def phase_snake():
 # cells (batch 16, 768-frame bucket, dec_dim 64, dim_mults (1, 2)): shape
 # → Blocks at it (13 in all)
 GN_CELL_BLOCKS = {(16, 64, 80, 768): 5, (16, 128, 40, 384): 4, (16, 64, 40, 384): 4}
+# the same Blocks of the 44.1 kHz cell's 128-band denoiser
+GN_V2_44K_BLOCKS = {(16, 64, 128, 768): 5, (16, 128, 64, 384): 4, (16, 64, 64, 384): 4}
 GN_MORE_SHAPES = [
     (1, 64, 80, 64),     # a 64-frame bucket at batch 1: 8 slabs
     (4, 64, 80, 64),     # batch 4: 32 slabs
@@ -864,8 +883,8 @@ def gn_inputs(shape, dtype, seed, shift=True, strided_mask=False):
 
 def phase_group_norm():
     """K5 (`ops/group_norm.group_norm_mish`) against the plain version on
-    the card, in bf16 and f32: the cells' Block shapes, a 64-frame bucket
-    at batch 1 and 4, a 2048-frame bucket, loads across frame rows and
+    the card, in bf16 and f32: the cells' Block shapes (80 and 128 bands),
+    a 64-frame bucket at batch 1 and 4, a 2048-frame bucket, loads across frame rows and
     single-element loads; masked tails, contiguous and strided masks, with
     and without the shift. The truth is the plain version in f32 on the
     same inputs; the plain version in the input dtype (the earlier design)
@@ -880,7 +899,7 @@ def phase_group_norm():
         log(f"K5 ptxas {line}")
     spilled = [line for line in build
                if "0 bytes spill stores" not in line or "0 bytes spill loads" not in line]
-    shapes = list(GN_CELL_BLOCKS) + GN_MORE_SHAPES
+    shapes = list(GN_CELL_BLOCKS) + GN_MORE_SHAPES + list(GN_V2_44K_BLOCKS)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     report = {}
     # bf16: one rounding of the result, ≤ 2^-8 of it, over the f32 truth;
@@ -2000,6 +2019,104 @@ def phase_config_export(card: str, directory: str) -> dict:
     return dict(export_s=export_s, wall_s=wall, fold_ratio=fold_worst, fold_control=fold_control,
                 wav={k: wavs[k] for k in EXPORT_WAV_REL}, synthesize_s=synth_s,
                 launches=dict(flash_attention=k1, snake=k2))
+
+
+V2_44K_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "dex_tts_tpu_torch",
+                           "configs", "dex_vctk_bigvgan_v2_44k.yaml")
+# the generator and mel keys of the config.json beside the released
+# checkpoint (huggingface.co/nvidia/bigvgan_v2_44khz_128band_512x)
+V2_44K_RELEASE_CONFIG = {
+    "resblock": "1", "upsample_rates": [8, 4, 2, 2, 2, 2],
+    "upsample_kernel_sizes": [16, 8, 4, 4, 4, 4], "upsample_initial_channel": 1536,
+    "resblock_kernel_sizes": [3, 7, 11], "resblock_dilation_sizes": [[1, 3, 5]] * 3,
+    "use_tanh_at_final": False, "use_bias_at_final": False, "activation": "snakebeta",
+    "snake_logscale": True, "num_mels": 128, "n_fft": 2048, "hop_size": 512, "win_size": 2048,
+    "sampling_rate": 44100, "fmin": 0, "fmax": None,
+}
+
+
+def phase_44k(card: str, directory: str) -> dict:
+    """The 44.1 kHz pipeline through its YAML (phase 15 of the module
+    docstring), in ``directory``. → report."""
+    import dataclasses
+
+    from dex_tts_tpu_torch import synthesize
+    from dex_tts_tpu_torch.audio.wav import read_wav, resample, write_wav
+    from dex_tts_tpu_torch.config import build_model, build_vocoder, load_preset, preset_from_config
+    from dex_tts_tpu_torch.eval.evaluation import read_vocoder_arch
+    from dex_tts_tpu_torch.ops.attention import flash_attention
+    from dex_tts_tpu_torch.ops.group_norm import group_norm_mish
+    from dex_tts_tpu_torch.ops.snake import snake_antialias
+    from dex_tts_tpu_torch.train import create_train_state
+    from dex_tts_tpu_torch.train.checkpoint import CheckpointManager
+    from dex_tts_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    preset = preset_from_config(load_config(V2_44K_YAML))
+    want = load_preset("dex_vctk_bigvgan_v2_44k")
+    assert dataclasses.replace(preset, cmu_path=want.cmu_path, vocoder=want.vocoder) == want, (
+        "yaml != preset")
+    torch.manual_seed(0)
+    model = build_model(preset.model, device="cuda")
+    perturb_(model, seed=3)
+    with torch.no_grad():  # durations pinned, as build_main_path does
+        model.encoder.proj_w.proj.weight.zero_()
+        model.encoder.proj_w.proj.bias.fill_(math.log(FRAMES_PER_TOKEN))
+    exp_dir = os.path.join(directory, "exp")
+    CheckpointManager(os.path.join(exp_dir, "ckpt")).save(create_train_state(model), "best-train")
+    del model
+    vocoder = build_vocoder(want.vocoder, device="cpu")
+    perturb_(vocoder, seed=4)
+    assert vocoder.conv_post.bias is None
+    voc_dir = os.path.join(directory, "bigvgan_v2")
+    os.makedirs(voc_dir)
+    torch.save(vocoder.state_dict(), os.path.join(voc_dir, "gen_last.pth"))
+    with open(os.path.join(voc_dir, "config.json"), "w") as f:
+        json.dump(V2_44K_RELEASE_CONFIG, f)
+    # the YAML's vocoder as the loader settles it from the release's config.json
+    assert dataclasses.replace(preset.vocoder, **read_vocoder_arch(voc_dir, True)) == want.vocoder
+    del vocoder
+    yaml_path = os.path.join(directory, "v2_44k.yaml")
+    load_config(V2_44K_YAML, {"path": {"vocoder_path": voc_dir}}).dump(yaml_path)
+    os.makedirs(os.path.join(directory, "ref"))
+    refs = write_reference_wavs(os.path.join(directory, "ref"), 1)
+    x, sr = read_wav(refs[0])
+    refs.append(os.path.join(directory, "ref", "ref_44k.wav"))
+    write_wav(refs[1], resample(x, sr, 44100), 44100)
+    common = ["--config", yaml_path, "--weight_path", exp_dir, "--seed", str(CONFIG_SEED),
+              "--solver", "dpmpp2m", "--n_timesteps", "16"]
+    runs = {"sentence": ["--input_text", SENTENCES[0], "--ref_name", *refs,
+                         "--out_dir", os.path.join(directory, "sentence")],
+            "long": ["--input_text", " ".join(SENTENCES[:3]), "--ref_name", refs[1], "--long",
+                     "--out_dir", os.path.join(directory, "long")]}
+    report = {}
+    for name, argv in runs.items():
+        torch.cuda.synchronize()
+        flash_attention.launches = snake_antialias.launches = group_norm_mish.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            written = synthesize.main(common + argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        calls = len(written) if name == "sentence" else 1  # --long: one batch of 3
+        for path, out in written:
+            wav, sr = read_wav(path)
+            n = out["n_frames"] * 512 + (2 * int(44100 * 0.2) if name == "long" else 0)
+            assert sr == 44100 and wav.shape == out["wav"].shape == (n,), (name, sr, wav.shape, n)
+            assert np.isfinite(wav).all() and np.abs(out["wav"]).max() > 0
+            assert np.abs(out["wav"]).max() <= 1.0
+        k1, k2, k5 = flash_attention.launches, snake_antialias.launches, group_norm_mish.launches
+        report[name] = dict(files=len(written), seconds=[read_wav(p)[0].size / 44100
+                                                         for p, _ in written],
+                            wall_s=wall, launches=dict(flash_attention=k1, snake=k2, group_norm=k5))
+        log(f"[44.1 kHz] synthesize --config {name}: {len(written)} WAV(s) at 44100 Hz,"
+            f" {report[name]['seconds']} s of audio, {wall:.2f} s with the loads; K1 {k1}, K2"
+            f" {k2}, K5 {k5} [{card}]")
+        assert (k1, k2, k5) == (preset.model.dit.depth * 16 * calls, SNAKE_LAUNCHES * calls,
+                                K5_PER_DENOISER_CALL * 16 * calls), (k1, k2, k5)
+    report["wall_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    return report
 
 
 def with_dit(preset, **dit_overrides):
@@ -3374,6 +3491,8 @@ def main():
         with torch_tf32_defaults():
             vocoder_train = phase_vocoder_train(card, tmp)
         config_export = phase_config_export(card, tmp)  # on vocoder_train's generator
+    with tempfile.TemporaryDirectory() as tmp:
+        v2_44k = phase_44k(card, tmp)
     hifigan = phase_main_path(card, "vctk_bench", {"ref_feats": random_ref_feats(16)},
                               {"ref_feats": random_ref_feats(3, seed=6)}, sampler_options=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3399,6 +3518,7 @@ def main():
     par = parallel_run["launches"]
     paths = {"hifigan": hifigan["request_1"]["launches"], "bigvgan": bigvgan["request_1"]["launches"],
              **{f"hifigan_{k}": v["launches"] for k, v in hifigan["options"].items()},
+             **{f"v2_44k_{k}": v["launches"] for k, v in v2_44k.items() if k != "wall_s"},
              **served["launches"], **evaluated["launches"],
              **{f"bench_{run[0]}": benches[run[0]]["launches"] for run in BENCH_RUNS}}
     train_launches = {**{f"train_{k}": v["launches"] for k, v in train.items()},
@@ -3543,8 +3663,10 @@ def main():
         "source": "dex_tts_tpu_torch/csrc/group_norm.cu",
         "replaces": None,  # no TPU kernel: XLA fuses the JAX package's GroupNorm + Mish
         "launches": benches["default"]["launches"]["group_norm"],
-        "launches_by_path": {f"bench_{run[0]}": benches[run[0]]["launches"]["group_norm"]
-                             for run in BENCH_RUNS},
+        "launches_by_path": {**{f"bench_{run[0]}": benches[run[0]]["launches"]["group_norm"]
+                                for run in BENCH_RUNS},
+                             **{f"v2_44k_{k}": v["launches"]["group_norm"]
+                                for k, v in v2_44k.items() if k != "wall_s"}},
         "max_abs_err": group_norm[torch.bfloat16]["max_abs_err"],
         # times: one denoiser call of the cells, Σ over the Block shapes of
         # (time at the shape × Blocks at it)

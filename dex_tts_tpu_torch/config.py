@@ -8,7 +8,11 @@ base.yaml; f32 compute); ``esd`` from dex_tts_tpu/config/presets/esd.yaml
 bench_train.py trains); ``vctk_bench`` is the benchmark's full-size DeX
 (bf16 compute, attention "auto") with HiFi-GAN; ``vctk_bench_bigvgan`` is
 the same DeX with the bf16 BigVGAN at the released 22 kHz 80-band widths,
-the JAX bench's ``--vocoder bigvgan`` (bench.py:108-119); ``gedex_bench``
+the JAX bench's ``--vocoder bigvgan`` (bench.py:108-119);
+``dex_vctk_bigvgan_v2_44k`` is the VCTK DeX at 128 mel bands (bf16
+compute) behind BigVGAN-v2 44 kHz 128-band 512x, with a 44.1 kHz front
+end (configs/dex_vctk_bigvgan_v2_44k.yaml is the same preset as a YAML);
+``gedex_bench``
 is the benchmark's GeDEX (`__graft_entry__._full_size_gedex`: patch 7,
 stride 4, one speaker, no style) with HiFi-GAN. ``libritts``,
 ``gedex_vctk`` and ``gedex_ljspeech`` are transcribed from their YAMLs
@@ -42,6 +46,7 @@ from dex_tts_tpu_torch.models.vocoder import (
     HiFiGANGenerator,
 )
 from dex_tts_tpu_torch.ops.masks import fix_len_compatibility
+from dex_tts_tpu_torch.pipeline import AudioConfig
 from dex_tts_tpu_torch.text.symbols import N_VOCAB
 from dex_tts_tpu_torch.utils.config import Config
 from dex_tts_tpu_torch.utils.device import resolve_device
@@ -83,7 +88,9 @@ class Preset:
     the vocoder's reference checkpoint, relative to the working
     directory. ``sample_rate``, ``hop_length``, ``n_fft``, ``win_length``,
     ``n_mels``, ``f_min`` and ``f_max`` are the ``preprocess`` section's
-    mel parameters, which the vocoder trainer trains on. ``vocoder_dtype``
+    mel parameters, which the vocoder trainer trains on and the
+    Synthesizer synthesizes at (`audio`), with `pipeline.AudioConfig`'s
+    defaults. ``vocoder_dtype``
     is the YAML's ``vocoder_dtype``: "auto" (bf16 BigVGAN on the card,
     f32 otherwise) or a dtype that `eval.evaluation.load_vocoder` forces."""
 
@@ -96,13 +103,13 @@ class Preset:
     train_path: str | None = None
     val_path: str | None = None
     add_blank: bool = True
-    sample_rate: int = 22050
-    hop_length: int = 256
-    n_fft: int = 1024
-    win_length: int = 1024
-    n_mels: int = 80
-    f_min: float = 0.0
-    f_max: float = 8000.0
+    sample_rate: int = AudioConfig.sample_rate
+    hop_length: int = AudioConfig.hop_length
+    n_fft: int = AudioConfig.n_fft
+    win_length: int = AudioConfig.win_length
+    n_mels: int = AudioConfig.n_mels
+    f_min: float = AudioConfig.f_min
+    f_max: float | None = AudioConfig.f_max
     ema: bool = False
     vocoder_path: str = "hifigan/weights"
     vocoder_dtype: str = "auto"
@@ -113,6 +120,11 @@ class Preset:
         if self.train is None or not self.train.out_size:
             return None
         return fix_len_compatibility(int(self.train.fix_len * self.sample_rate / self.hop_length))
+
+    def audio(self) -> AudioConfig:
+        """The mel parameters as the Synthesizer takes them."""
+        return AudioConfig(**{f.name: getattr(self, f.name)
+                              for f in dataclasses.fields(AudioConfig)})
 
 
 def vctk() -> Preset:
@@ -226,6 +238,27 @@ def vctk_bench_bigvgan() -> Preset:
     )
 
 
+def dex_vctk_bigvgan_v2_44k() -> Preset:
+    """`vctk`'s DeX (DEX-TTS/config/VCTK/base.yaml widths) at 128 mel bands
+    with bf16 compute, behind NVIDIA's BigVGAN-v2
+    bigvgan_v2_44khz_128band_512x (config.json: rates (8, 4, 2, 2, 2, 2),
+    kernels (16, 8, 4, 4, 4, 4), 1536 channels, snakebeta in logscale, no
+    tanh and no bias at the head), and its 44.1 kHz front end: n_fft 2048,
+    hop 512, window 2048, 0 Hz to Nyquist. No 44.1 kHz DEX-TTS checkpoint
+    is published: the 128 bands and the front end follow the vocoder."""
+    dex = vctk()
+    return dataclasses.replace(
+        dex,
+        model=dataclasses.replace(dex.model, n_feats=128, compute_dtype="bfloat16"),
+        vocoder=BigVGANConfig(
+            num_mels=128, upsample_rates=(8, 4, 2, 2, 2, 2),
+            upsample_kernel_sizes=(16, 8, 4, 4, 4, 4), upsample_initial_channel=1536,
+            use_tanh_at_final=False, use_bias_at_final=False),
+        sample_rate=44100, hop_length=512, n_fft=2048, win_length=2048, n_mels=128,
+        f_min=0.0, f_max=None, vocoder_path="bigvgan_v2_44khz_128band_512x",
+    )
+
+
 def gedex_bench() -> Preset:
     """The benchmark's GeDEX at the reference's LJSpeech scale
     (`__graft_entry__._full_size_gedex`; GeDEX-TTS/config/LJSpeech/
@@ -311,7 +344,8 @@ def gedex_ljspeech() -> Preset:
 
 PRESETS = {"vctk": vctk, "esd": esd, "libritts": libritts, "gedex_vctk": gedex_vctk,
            "gedex_ljspeech": gedex_ljspeech, "vctk_bench": vctk_bench,
-           "vctk_bench_bigvgan": vctk_bench_bigvgan, "gedex_bench": gedex_bench}
+           "vctk_bench_bigvgan": vctk_bench_bigvgan, "gedex_bench": gedex_bench,
+           "dex_vctk_bigvgan_v2_44k": dex_vctk_bigvgan_v2_44k}
 
 
 def load_preset(name: str) -> Preset:
@@ -416,6 +450,7 @@ def preset_from_config(cfg) -> Preset:
     pre, test, path = cfg.get("preprocess", {}), cfg.get("test", {}), cfg.path
     n_mels = int(pre.get("n_mels", 80))
     kind = str(cfg.get("vocoder", "hifigan")).lower()
+    f_max = pre.get("f_max", 8000.0)
     return Preset(
         model=_tts_config(cfg),
         vocoder=(BigVGANConfig if kind == "bigvgan" else HiFiGANConfig)(num_mels=n_mels),
@@ -432,7 +467,7 @@ def preset_from_config(cfg) -> Preset:
         win_length=int(pre.get("win_length", 1024)),
         n_mels=n_mels,
         f_min=float(pre.get("f_min", 0.0)),
-        f_max=float(pre.get("f_max", 8000.0)),
+        f_max=None if f_max is None else float(f_max),
         ema=bool(test.get("ema", False)),
         vocoder_path=path.get("vocoder_path", ""),
         vocoder_dtype=str(cfg.get("vocoder_dtype") or "auto"),

@@ -60,7 +60,8 @@ from dex_tts_tpu_torch.utils.device import resolve_device
 # (reference: DEX-TTS/src/utils.py:255-262)
 ARCH_KEYS = ("num_mels", "upsample_rates", "upsample_kernel_sizes",
              "upsample_initial_channel", "resblock_kernel_sizes", "resblock_dilation_sizes")
-BIGVGAN_ARCH_KEYS = ARCH_KEYS + ("activation", "snake_logscale")
+BIGVGAN_ARCH_KEYS = ARCH_KEYS + ("activation", "snake_logscale", "use_tanh_at_final",
+                                  "use_bias_at_final")
 # the reference BigVGAN's alias-free activations keep their fixed
 # Kaiser-sinc taps as persistent buffers; the port computes them from the
 # config, so the reader drops them
@@ -69,8 +70,9 @@ BIGVGAN_FILTER_SUFFIXES = (".upsample.filter", ".downsample.lowpass.filter")
 
 def read_vocoder_arch(path: str, bigvgan: bool) -> dict:
     """The architecture keys of ``config.json`` beside a vocoder checkpoint,
-    as the JAX loader reads them (lists as tuples, nested lists as tuples
-    of tuples); {} when there is no such file."""
+    as the JAX loader reads them, and BigVGAN-v2's head keys (lists as
+    tuples, nested lists as tuples of tuples); {} when there is no such
+    file."""
     cfg_json = os.path.join(path, "config.json") if path else ""
     if not os.path.isfile(cfg_json):
         return {}
@@ -226,7 +228,7 @@ def load_synthesizer(preset: Preset, exp_dir: str, n_timesteps: int = 50,
         model, vocoder, cmu_path=preset.cmu_path, add_blank=preset.add_blank,
         sampler=SamplerConfig(num_steps=n_timesteps, solver=solver,
                               dit_cache_interval=dit_cache_interval),
-        device=device,
+        device=device, audio=preset.audio(),
     )
 
 
@@ -311,6 +313,7 @@ def run_objective_eval(
         spk_scorer = SpeakerScorer(weights=spk_encoder, device=synth.device)
     maes, mcds, wers, cers, coss = [], [], [], [], []
     generator = torch.Generator(synth.device).manual_seed(seed)
+    sr = preset.sample_rate
     for i, item in enumerate(items):
         kwargs = {}
         if "ref" in item:
@@ -318,7 +321,7 @@ def run_objective_eval(
             kwargs["ref_feats"] = [(item["ref"], item["lf0"])]
         out = synth.tts([item["raw_text"]], generator=generator,
                         temperature=preset.temperature, **kwargs)[0]
-        write_wav(os.path.join(out_dir, f"{i:03d}_syn.wav"), out["wav"])
+        write_wav(os.path.join(out_dir, f"{i:03d}_syn.wav"), out["wav"], sr)
         if "y" in item:
             maes.append(mel_mae(item["y"], out["mel"]))
             mcds.append(mel_cepstral_distortion(item["y"], out["mel"]))
@@ -329,7 +332,7 @@ def run_objective_eval(
         if copy_src and os.path.isfile(copy_src):
             shutil.copy(copy_src, os.path.join(
                 out_dir, f"{i:03d}_ref" + os.path.splitext(copy_src)[1]))
-        hyp = asr.transcribe(out["wav"]) if asr.available else None
+        hyp = asr.transcribe(out["wav"], sr) if asr.available else None
         if hyp is not None:
             wers.append(wer(item["raw_text"], hyp))
             cers.append(cer(item["raw_text"], hyp))
@@ -337,8 +340,7 @@ def run_objective_eval(
         # (reference: DEX-TTS/src/metric.py:80-95, evaluation.py:76-85)
         if spk_scorer.available and gt_path:
             gt_wav, gt_sr = read_wav(gt_path)
-            cos = spk_scorer.cosine(out["wav"], resample(gt_wav, gt_sr, 22050),
-                                    sample_rate=22050)
+            cos = spk_scorer.cosine(out["wav"], resample(gt_wav, gt_sr, sr), sample_rate=sr)
             if cos is not None:
                 coss.append(cos)
 

@@ -182,7 +182,8 @@ def make_synthesis_callback(preset: Preset, model, exp_dir: str, n_timesteps: in
                 cache["ds"] = ds
                 cache["synth"] = Synthesizer(
                     model, vocoder, cmu_path=preset.cmu_path, add_blank=preset.add_blank,
-                    sampler=SamplerConfig(num_steps=n_timesteps, solver=solver), device=device)
+                    sampler=SamplerConfig(num_steps=n_timesteps, solver=solver), device=device,
+                    audio=preset.audio())
             ds, synth = cache["ds"], cache["synth"]
             model.eval()
             os.makedirs(out_dir, exist_ok=True)
@@ -192,7 +193,8 @@ def make_synthesis_callback(preset: Preset, model, exp_dir: str, n_timesteps: in
                 out = synth.tts([item["raw_text"]],
                                 generator=torch.Generator(synth.device).manual_seed(i),
                                 **kwargs)[0]
-                write_wav(os.path.join(out_dir, f"epoch{epoch}_{i}.wav"), out["wav"])
+                write_wav(os.path.join(out_dir, f"epoch{epoch}_{i}.wav"), out["wav"],
+                          synth.audio.sample_rate)
                 print(f"  syn sample {i}: mel_mae={mel_mae(item['y'], out['mel']):.4f}",
                       flush=True)
         finally:

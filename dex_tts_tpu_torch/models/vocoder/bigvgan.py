@@ -6,7 +6,10 @@ bigvgan/alias_free_torch/{filter,resample,act}.py. The HiFi-GAN skeleton
 with anti-aliased periodic activations: every AMP-block activation is
 2× Kaiser-sinc upsample → snake / snakebeta → 2× Kaiser-sinc downsample,
 one call of `ops.snake.snake_antialias` (the Hopper kernel on the card).
-Defaults match the released bigvgan_22khz_80band config.
+Defaults match the released bigvgan_22khz_80band config;
+``use_tanh_at_final`` / ``use_bias_at_final`` false give the BigVGAN-v2
+head (e.g. bigvgan_v2_44khz_128band_512x): ``conv_post`` without a bias
+and a clamp to [-1, 1] in place of ``tanh``.
 
 The generator keeps PyTorch's (B, C, T) layout; each snake gets a
 (B, T, C) transposed view, which the kernel reads through its strides.
@@ -25,6 +28,7 @@ import torch.nn.functional as F
 
 from dex_tts_tpu_torch.models.dit import DTYPES
 from dex_tts_tpu_torch.models.layers import run_in
+from dex_tts_tpu_torch.models.vocoder.hifigan import stage_span
 from dex_tts_tpu_torch.ops.snake import depthwise, kaiser_sinc_filter, snake_antialias
 from dex_tts_tpu_torch.utils import profiling
 
@@ -40,7 +44,10 @@ class BigVGANConfig:
     in the JAX package, whether bf16 uses the polynomial sin².
     ``conv_impl`` ("packed") and ``upsample_impl`` ("subpixel") chose TPU
     lowerings of the same convolutions with the same parameters: every
-    value maps to nn.Conv1d / nn.ConvTranspose1d here."""
+    value maps to nn.Conv1d / nn.ConvTranspose1d here.
+    ``use_tanh_at_final`` and ``use_bias_at_final`` (BigVGAN-v2's
+    config.json keys; the port's own, v1's behaviour by default): the
+    head's ``tanh`` (else a clamp to [-1, 1]) and ``conv_post``'s bias."""
 
     num_mels: int = 80
     upsample_rates: tuple = (4, 4, 2, 2, 2, 2)
@@ -58,6 +65,8 @@ class BigVGANConfig:
     stage_dtypes: tuple | None = None
     upsample_impl: str = "conv_transpose"
     conv_impl: str = "auto"
+    use_tanh_at_final: bool = True
+    use_bias_at_final: bool = True
 
 
 def upsample2x_antialias(x, ratio: int = 2, kernel_size: int | None = None):
@@ -90,7 +99,8 @@ def _reference_init(conv):
     # ups, AMP-block convs and conv_post: normal(0, 0.01) as in the
     # reference (bigvgan/models.py:19-22); zero bias as flax's default
     nn.init.normal_(conv.weight, 0.0, 0.01)
-    nn.init.zeros_(conv.bias)
+    if conv.bias is not None:
+        nn.init.zeros_(conv.bias)
     return conv
 
 
@@ -219,23 +229,31 @@ class BigVGANGenerator(nn.Module):
             for rk, rd in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
                 self.resblocks.append(block_cls(ch, rk, tuple(rd), self.stage_dtypes[i], **act))
         self.activation_post = SnakeActivation1d(ch, **act)
-        self.conv_post = _reference_init(nn.Conv1d(ch, 1, 7, padding=3))
+        self.conv_post = _reference_init(nn.Conv1d(ch, 1, 7, padding=3,
+                                                   bias=cfg.use_bias_at_final))
 
     def forward(self, mel):
-        """mel: (B, num_mels, T) → waveform (B, T·Πrates) in [-1, 1], f32."""
+        """mel: (B, num_mels, T) → waveform (B, T·Πrates) in [-1, 1], f32.
+        Each upsample stage is a ``vocoder.stage`` span (`stage_span`);
+        the first holds ``conv_pre``, the last the head."""
         n_k = len(self.cfg.resblock_kernel_sizes)
-        dt = DTYPES[self.stage_dtypes[0]]
-        x = run_in(self.conv_pre, mel, dt)
+        last = len(self.ups) - 1
+        x = mel
         for i, (up,) in enumerate(self.ups):
             dt = DTYPES[self.stage_dtypes[i]]
-            if profiling.TRACING:
-                profiling.count_casts(dt, up.weight, up.bias)
-            x = F.conv_transpose1d(x.to(dt), up.weight.to(dt), up.bias.to(dt),
-                                   up.stride, up.padding)
-            acc = None
-            for j in range(n_k):
-                out = self.resblocks[i * n_k + j](x)
-                acc = out if acc is None else acc + out
-            x = acc / n_k
-        x = run_in(self.conv_post, self.activation_post(x), dt)
-        return torch.tanh(x.float())[:, 0]
+            with stage_span(self, i, mel):
+                if i == 0:
+                    x = run_in(self.conv_pre, mel, dt)
+                if profiling.TRACING:
+                    profiling.count_casts(dt, up.weight, up.bias)
+                x = F.conv_transpose1d(x.to(dt), up.weight.to(dt), up.bias.to(dt),
+                                       up.stride, up.padding)
+                acc = None
+                for j in range(n_k):
+                    out = self.resblocks[i * n_k + j](x)
+                    acc = out if acc is None else acc + out
+                x = acc / n_k
+                if i == last:
+                    x = run_in(self.conv_post, self.activation_post(x), dt).float()
+                    x = torch.tanh(x) if self.cfg.use_tanh_at_final else x.clamp(-1.0, 1.0)
+        return x[:, 0]

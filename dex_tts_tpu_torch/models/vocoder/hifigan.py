@@ -11,6 +11,7 @@ names match the reference generator's state_dict.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -93,22 +94,41 @@ class HiFiGANGenerator(nn.Module):
         self.conv_post = _normal_init(nn.Conv1d(ch, 1, 7, padding=3))
 
     def forward(self, mel):
-        """mel: (B, num_mels, T) log-mel → waveform (B, T·hop) in [-1, 1]."""
+        """mel: (B, num_mels, T) log-mel → waveform (B, T·hop) in [-1, 1].
+        Each upsample stage is a ``vocoder.stage`` span (`stage_span`);
+        the first holds ``conv_pre``, the last the head."""
         cfg = self.cfg
         dt = DTYPES[cfg.dtype]
         n_k = len(cfg.resblock_kernel_sizes)
-        x = run_in(self.conv_pre, mel, dt)
+        last = len(self.ups) - 1
+        x = mel
         for i, up in enumerate(self.ups):
-            if profiling.TRACING:
-                profiling.count_casts(dt, up.weight, up.bias)
-            x = F.conv_transpose1d(
-                F.leaky_relu(x, LRELU_SLOPE), up.weight.to(dt), up.bias.to(dt),
-                up.stride, up.padding,
-            )
-            acc = None
-            for j in range(n_k):
-                out = self.resblocks[i * n_k + j](x, dt)
-                acc = out if acc is None else acc + out
-            x = acc / n_k
-        x = self.conv_post(F.leaky_relu(x.float()))
-        return torch.tanh(x)[:, 0]
+            with stage_span(self, i, mel):
+                if i == 0:
+                    x = run_in(self.conv_pre, mel, dt)
+                if profiling.TRACING:
+                    profiling.count_casts(dt, up.weight, up.bias)
+                x = F.conv_transpose1d(
+                    F.leaky_relu(x, LRELU_SLOPE), up.weight.to(dt), up.bias.to(dt),
+                    up.stride, up.padding,
+                )
+                acc = None
+                for j in range(n_k):
+                    out = self.resblocks[i * n_k + j](x, dt)
+                    acc = out if acc is None else acc + out
+                x = acc / n_k
+                if i == last:
+                    x = torch.tanh(self.conv_post(F.leaky_relu(x.float())))
+        return x[:, 0]
+
+
+def stage_span(generator, i: int, mel):
+    """The ``vocoder.stage`` span of upsample stage ``i`` of a HiFi-GAN or
+    BigVGAN generator (its transposed conv and residual blocks), on the
+    device of ``mel``: stage index, upsample rate, output channels and
+    output samples per item."""
+    cfg = generator.cfg
+    rates = cfg.upsample_rates[: i + 1]
+    return profiling.span("vocoder.stage", mel.device, stage=i, rate=rates[-1],
+                          channels=cfg.upsample_initial_channel // 2 ** (i + 1),
+                          samples=mel.shape[-1] * math.prod(rates))

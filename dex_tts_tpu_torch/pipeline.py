@@ -11,8 +11,9 @@ speaker id) → waveform (port of dex_tts_tpu/pipeline.py, `tts` path).
 
 The buckets and batch padding are those of the JAX package, so both pick
 the same shapes for the same inputs. Style comes in as reference wav files
-(``ref_wavs``, through `prepare_reference`) or as pre-extracted
-``ref_feats`` [(mel (F, T), lf0 (T,)), ...]. Long texts go through
+(``ref_wavs``, through `prepare_reference`, at the synthesizer's
+`AudioConfig`) or as pre-extracted ``ref_feats`` [(mel (F, T), lf0 (T,)),
+...]. Long texts go through
 `split_sentences` and `tts_stream` (batches ramping 1 → 2 → … →
 max_batch, one result per sentence as its batch completes) or
 `tts_long` (full batches, one WAV with pauses).
@@ -48,6 +49,28 @@ from dex_tts_tpu_torch.utils import intersperse, profiling, resolve_device
 
 HOP_LENGTH = 256
 SAMPLE_RATE = 22050
+
+
+@dataclasses.dataclass(frozen=True)
+class AudioConfig:
+    """The audio a Synthesizer works in (a config's ``preprocess``
+    section): the rate its waveforms have and reference wavs are
+    resampled to, and the log-mel and lf0 front end of a reference wav.
+    The defaults are the reference's 22.05 kHz, 80-band front end;
+    ``f_max`` None is the Nyquist rate."""
+
+    sample_rate: int = SAMPLE_RATE
+    hop_length: int = HOP_LENGTH
+    n_fft: int = 1024
+    win_length: int = 1024
+    n_mels: int = 80
+    f_min: float = 0.0
+    f_max: float | None = 8000.0
+
+    def mel_spectrogram(self) -> MelSpectrogram:
+        return MelSpectrogram(n_fft=self.n_fft, hop_length=self.hop_length,
+                              win_length=self.win_length, n_mels=self.n_mels,
+                              sample_rate=self.sample_rate, fmin=self.f_min, fmax=self.f_max)
 
 
 def split_sentences(text: str, max_chars: int = 400) -> list[str]:
@@ -100,6 +123,8 @@ def ramp_spans(n: int, max_batch: int, first_batch: int = 1) -> list[tuple[int, 
 
 
 class Synthesizer:
+    audio = AudioConfig()
+
     def __init__(
         self,
         model,
@@ -112,6 +137,7 @@ class Synthesizer:
         y_quantum: int = 64,
         pad_batches: bool = True,
         mesh=None,
+        audio: AudioConfig | None = None,
     ):
         """model: a DeXTTS / GeDEXTTS with its weights; vocoder: a
         HiFiGANGenerator, a BigVGANGenerator or None. Both are moved to
@@ -121,7 +147,11 @@ class Synthesizer:
         pads every batch to a power of two (repeating the last row; the
         extra results are dropped), as the JAX package does. mesh: data-
         and tensor-parallel serving (module docstring); the model is
-        tensor-parallel-sharded in place when the mesh's tp size is > 1."""
+        tensor-parallel-sharded in place when the mesh's tp size is > 1.
+        audio: the rate and reference front end (`AudioConfig`, its
+        22.05 kHz defaults when None); ``hop``, the samples per frame, is
+        the vocoder's upsampling, else the audio's hop. Raises if a given
+        audio's hop is not the vocoder's upsampling."""
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.mesh = mesh
@@ -134,10 +164,15 @@ class Synthesizer:
         self.x_quantum = x_quantum
         self.y_quantum = y_quantum
         self.pad_batches = pad_batches
-        self.mel_extractor = MelSpectrogram()
-        self.hop = HOP_LENGTH
+        if audio is not None:
+            self.audio = audio
+        self.mel_extractor = self.audio.mel_spectrogram()
+        self.hop = self.audio.hop_length
         if vocoder is not None:
             self.hop = int(np.prod(vocoder.cfg.upsample_rates))
+            if audio is not None and self.hop != audio.hop_length:
+                raise ValueError(f"the vocoder upsamples x{self.hop} but the audio's hop is"
+                                 f" {audio.hop_length}")
 
     def prepare_text(self, text: str) -> np.ndarray:
         seq = text_to_sequence(text, dictionary=self.cmudict)
@@ -146,17 +181,22 @@ class Synthesizer:
         return np.asarray(seq, np.int32)
 
     def prepare_reference(self, wav_path: str):
-        """Reference wav → (mel (80, T), normalized lf0 (T,)), numpy: trim,
-        resample to 22.05 kHz and peak-normalize on the host, log-mel on
-        the synthesizer's device, lf0 on the host.
+        """Reference wav → (mel (n_mels, T), normalized lf0 (T,)), numpy:
+        trim, resample to the audio's rate and peak-normalize on the host,
+        log-mel on the synthesizer's device, lf0 at the audio's hop on the
+        host; raises if the audio's bands are not the model's.
         reference: DEX-TTS/synthesize.py:40-62."""
+        audio = self.audio
+        if audio.n_mels != self.model.cfg.n_feats:
+            raise ValueError(f"the reference front end gives {audio.n_mels} mel bands, the model"
+                             f" takes {self.model.cfg.n_feats}: pass its AudioConfig")
         wav, sr = read_wav(wav_path)
         wav = trim_silence(wav, top_db=30.0)
-        wav = resample(wav, sr, SAMPLE_RATE)
+        wav = resample(wav, sr, audio.sample_rate)
         wav = peak_normalize(wav)
         mel, _ = self.mel_extractor(torch.from_numpy(wav)[None].to(self.device))
         mel = mel[0].cpu().numpy()
-        lf0 = normalize_lf0(extract_lf0(wav, SAMPLE_RATE, HOP_LENGTH))
+        lf0 = normalize_lf0(extract_lf0(wav, audio.sample_rate, audio.hop_length))
         t = min(mel.shape[1], len(lf0))
         return mel[:, :t], lf0[:t]
 
@@ -256,8 +296,10 @@ class Synthesizer:
         sampler = dataclasses.replace(self.sampler, **overrides) if overrides else self.sampler
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
+        # the waveform's rate is the audio's where the vocoder gives its hop
+        rate = {"sample_rate": self.audio.sample_rate} if self.hop == self.audio.hop_length else {}
         with profiling.span("tts", batch=len(texts), steps=sampler.num_steps,
-                            solver=sampler.solver):
+                            solver=sampler.solver, **rate):
             if ref_wavs is not None:
                 ref_feats = [self.prepare_reference(p) for p in ref_wavs]
 
@@ -356,7 +398,8 @@ class Synthesizer:
     ) -> dict:
         """Paragraph synthesis: `split_sentences`, batched calls of up to
         ``max_batch`` sentences (`tts_stream` without the ramp), and the
-        waveforms joined with ``pause_ms`` of silence between sentences.
+        waveforms joined with ``pause_ms`` of silence (at the audio's
+        rate) between sentences.
         → {"wav", "sentences": [per-sentence dicts]} (no "wav" when the
         sentences have none)."""
         results = list(self.tts_stream(text, generator=generator, max_chars=max_chars,
@@ -364,7 +407,7 @@ class Synthesizer:
                                        **tts_kwargs))
         if "wav" not in results[0]:
             return {"sentences": results}
-        gap = np.zeros(int(SAMPLE_RATE * pause_ms / 1e3), np.float32)
+        gap = np.zeros(int(self.audio.sample_rate * pause_ms / 1e3), np.float32)
         parts: list[np.ndarray] = []
         for i, r in enumerate(results):
             if i:

@@ -2,7 +2,7 @@
 (port of serve.py; the endpoints are `serving.py`'s).
 
   POST /tts         {"texts": ["Hello there.", ...]} or {"text": "paragraph"}
-                    → {"wavs": [<b64 int16 PCM>], "sample_rate": 22050, "rtf": ...}
+                    → {"wavs": [<b64 int16 PCM>], "sample_rate": <the config's>, "rtf": ...}
   POST /tts_stream  {"text": "paragraph"} → NDJSON, one line per sentence
   GET  /healthz     → {"ok": true, "batch_sizes": [...], "device": ..., "card": ...}
 

@@ -18,8 +18,8 @@ presets instead. ``--weight_path`` is an experiment directory
 ``path.vocoder_path``. ``--device`` replaces synthesize.py's
 ``--platform``: CUDA unless ``--device cpu``. ``--random_init``
 synthesizes from random weights when no checkpoint is found (a smoke run;
-the output is noise). Writes one 22.05 kHz int16 WAV per reference
-(``sample.wav`` without one).
+the output is noise). Writes one int16 WAV per reference (``sample.wav``
+without one) at the config's ``preprocess.sample_rate``.
 """
 
 from __future__ import annotations
@@ -99,7 +99,7 @@ def main(argv=None) -> list[tuple[str, dict]]:
             out = synth.tts([args.input_text], **common)[0]
         stem = os.path.splitext(os.path.basename(ref))[0] if ref else "sample"
         path = os.path.join(args.out_dir, f"{stem}.wav")
-        write_wav(path, out["wav"])
+        write_wav(path, out["wav"], synth.audio.sample_rate)
         print(f"wrote {path} ({out['n_frames']} frames)")
         written.append((path, out))
     return written

@@ -128,7 +128,7 @@ def test_griffin_lim_matches_jax(n_iters):
 def test_prepare_reference_matches_jax(ref_wav):
     """A 16 kHz recording through trim, resample, peak-normalize, log-mel
     and lf0: the lf0 equal, the log-mel within 1e-4."""
-    syn = Synthesizer(build_tts(tiny_cfg()), device="cpu")
+    syn = Synthesizer(build_tts(tiny_cfg(n_feats=80)), device="cpu")
     mel_p, lf0_p = syn.prepare_reference(ref_wav)
     mel_j, lf0_j = JaxSynthesizer(None, None).prepare_reference(ref_wav)
     assert mel_p.shape == mel_j.shape and mel_p.shape[0] == 80 and mel_p.shape[1] > 200

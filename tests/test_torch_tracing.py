@@ -314,7 +314,7 @@ def test_cast_bytes_match_an_independent_count(family):
     steps = call.root.attrs["steps"]
     assert denoiser.bytes > 0 and vocoder.bytes > 0
     assert counted(("denoiser", "dit")) == steps * denoiser.bytes
-    assert counted(("tts.vocoder",)) == vocoder.bytes
+    assert counted(("tts.vocoder", "vocoder.stage")) == vocoder.bytes
     assert counted({s.name for s in call.spans}) == whole.bytes == (
         steps * denoiser.bytes + vocoder.bytes)
 
@@ -335,3 +335,24 @@ def test_a_tensor_parallel_linear_counts_its_cast(monkeypatch):
             layer(torch.randn(3, 6), torch.bfloat16)
             layer(torch.randn(3, 6), torch.float32)  # no cast: nothing counted
     assert root.counts == {"cast_bytes": (10 * 6 + 10) * 2}
+
+
+@pytest.mark.parametrize("family", ["dex", "gedex"])
+def test_vocoder_stages_tile_the_vocoder_span(family):
+    """One ``vocoder.stage`` span per upsample stage of HiFi-GAN (dex) and
+    BigVGAN (gedex), under ``tts.vocoder``, with its index, rate, channels
+    and samples per item; from ``conv_pre`` to the head they cover the
+    vocoder's span on the host clock up to the loop's own overhead."""
+    syn = _synth(family)
+    with profiling.tracing():
+        _call(syn)
+    call = profiling.calls()[-1]
+    vocoder, = [s for s in call.spans if s.name == "tts.vocoder"]
+    stages = _children(call, vocoder)
+    frames = call.root.attrs["frame_bucket"]
+    assert [(s.name, s.attrs) for s in stages] == [
+        ("vocoder.stage", dict(stage=0, rate=4, channels=8, samples=4 * frames)),
+        ("vocoder.stage", dict(stage=1, rate=2, channels=4, samples=8 * frames))]
+    assert all(_children(call, s) == [] for s in stages)
+    assert stages[0].t0 >= vocoder.t0 and stages[1].t1 <= vocoder.t1
+    assert sum(s.device_s for s in stages) == pytest.approx(vocoder.device_s, rel=0.05)
